@@ -38,11 +38,6 @@ namespace mhmr {
 namespace {
 
 constexpr int kDh = 64;
-constexpr float kLn2 = 0.6931471805599453f;
-
-struct Strides {
-  long long b, h, d, n;
-};
 
 // ---------------------------------------------------------------- bf16 path
 constexpr int kBlockM = 128;  // query rows per block (8 warps x 16)
@@ -52,55 +47,6 @@ constexpr int kThreads = 256;
 // that the 8 rows an ldmatrix phase reads fall in distinct banks
 constexpr int kLdQ = kBlockM + 8;  // 272 B
 constexpr int kLd = kBlockN + 8;   // 144 B
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(BF16::store(lo)) |
-         (static_cast<uint32_t>(BF16::store(hi)) << 16);
-}
-
-// [64 channels][kTok tokens] tile starting at token n0; tokens >= lim -> 0
-template <int kTok, int kStride>
-__device__ __forceinline__ void stage_tile(uint16_t* __restrict__ s,
-                                           const uint16_t* __restrict__ g,
-                                           long long sd, long long sn, int n0,
-                                           int lim, int tid) {
-#pragma unroll 8
-  for (int i = 0; i < (kDh * kTok) / kThreads; ++i) {
-    const int e = i * kThreads + tid;
-    const int d = e / kTok;
-    const int t = e % kTok;
-    const int n = n0 + t;
-    s[d * kStride + t] = n < lim ? g[d * sd + n * sn] : uint16_t(0);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
@@ -124,7 +70,7 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
   const int m0 = blockIdx.x * kBlockM;
   const long long base = (bh / H) * st.b + (bh % H) * st.h;
 
-  stage_tile<kBlockM, kLdQ>(sQ, q + base, st.d, st.n, m0, N, tid);
+  stage_tile<kBlockM, kLdQ, kThreads>(sQ, q + base, st.d, st.n, m0, N, tid);
   __syncthreads();
 
   // q as A fragments (row = query, col = channel): 4 k-steps of 16 channels
@@ -146,8 +92,8 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous k/v tile
-    stage_tile<kBlockN, kLd>(sK, k + base, st.d, st.n, n0, kv_len, tid);
-    stage_tile<kBlockN, kLd>(sV, v + base, st.d, st.n, n0, kv_len, tid);
+    stage_tile<kBlockN, kLd, kThreads>(sK, k + base, st.d, st.n, n0, kv_len, tid);
+    stage_tile<kBlockN, kLd, kThreads>(sV, v + base, st.d, st.n, n0, kv_len, tid);
     __syncthreads();
 
     // S = q k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
@@ -210,10 +156,7 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dp = 0; dp < 4; ++dp) {
         uint32_t b[4];
@@ -339,7 +282,7 @@ extern "C" int mhmr_flash_fwd_t(const void* q, const void* k, const void* v,
   using namespace mhmr;
   if (Dh != kDh || kv_len < 1 || kv_len > N) return cudaErrorInvalidValue;
   const Strides st{stride_b, stride_h, stride_d, stride_n};
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
     dim3 grid((N + kBlockM - 1) / kBlockM, B * H);

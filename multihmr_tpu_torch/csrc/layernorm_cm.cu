@@ -24,7 +24,6 @@ namespace {
 
 constexpr int kTok = 32;    // token columns per block (one per lane)
 constexpr int kGroups = 8;  // warps per block, interleaved over channels
-constexpr int kMaxDevices = 16;
 
 template <typename In, typename Out>
 __global__ void __launch_bounds__(kTok * kGroups)
@@ -101,14 +100,8 @@ cudaError_t launch(const void* x, const float* scale, const float* bias,
   // raise the dynamic shared-memory limit once per instantiation, device
   // and size (a host-side call that would otherwise cost every launch)
   static int smem_allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(kernel, smem, smem_allowed);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || smem > smem_allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) smem_allowed[dev] = smem;
-  }
   dim3 grid((N + kTok - 1) / kTok, B);
   kernel<<<grid, kTok * kGroups, smem, stream>>>(
       static_cast<const typename In::T*>(x), scale, bias,

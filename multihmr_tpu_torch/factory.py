@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from multihmr_tpu.config import ModelConfig, named_config
+from multihmr_tpu_torch.config import ModelConfig, named_config
 from multihmr_tpu_torch.bodymodel.assets import load_smplx_npz, smplx_like_synthetic
 from multihmr_tpu_torch.bodymodel.core import BodyModel
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet

@@ -21,7 +21,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from multihmr_tpu.config import ModelConfig
+from multihmr_tpu_torch.config import ModelConfig
 
 _STACKED = ("backbone", "blocks", "block")
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multihmr_tpu.config import ModelConfig
+from multihmr_tpu_torch.config import ModelConfig
 from multihmr_tpu_torch.bodymodel.assets import load_mean_params
 from multihmr_tpu_torch.models.vit import lecun_normal_
 from multihmr_tpu_torch.ops.detection import Detections, scatter_add_grid

@@ -8,6 +8,11 @@ slots with the valid ones first.
 
 Precision: the ViT and the detection MLP in ``cfg.compute_dtype``; geometry,
 the HPH head and the body model in fp32.
+
+Training: ``is_training=True`` with ``gt_det`` (the ground-truth detection
+slots of ``train/trainer.py::prepare_gt``) replaces NMS and top-K. Nothing
+in the network depends on ``nn.Module.train()``/``eval()``: no dropout, no
+batch statistics.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multihmr_tpu.config import ModelConfig
+from multihmr_tpu_torch.config import ModelConfig
 from multihmr_tpu_torch.bodymodel.core import BodyModel
 from multihmr_tpu_torch.models.hph import HPH, init_linear_
 from multihmr_tpu_torch.models.smplx_layer import SMPLXCameraLayer
@@ -30,6 +35,7 @@ from multihmr_tpu_torch.ops.camera import (
     undo_log_depth,
 )
 from multihmr_tpu_torch.ops.detection import (
+    Detections,
     clamped_sigmoid,
     gather_grid,
     nms_maxpool,
@@ -64,7 +70,8 @@ class MultiHMRNet(nn.Module):
         self.cfg = cfg
         d = cfg.vit.embed_dim
         self.compute_dtype = DTYPES[cfg.compute_dtype]
-        self.backbone = DINOv2ViT(cfg.vit, cfg.grid_size, self.compute_dtype)
+        self.backbone = DINOv2ViT(cfg.vit, cfg.grid_size, self.compute_dtype,
+                                  remat_policy=cfg.remat_policy if cfg.remat else None)
         self.mlp_classif = RegressionMLP(d, d, 1)
         self.mlp_offset = RegressionMLP(d, d, 2)
         self.x_attention_head = HPH(cfg)
@@ -78,8 +85,10 @@ class MultiHMRNet(nn.Module):
         self.x_attention_head.init_weights(generator)
         return self
 
-    def forward(self, x, K, det_thresh: float = 0.3, nms_kernel_size: int = 3) -> dict:
-        """``x [B, S, S, 3]`` normalized NHWC, ``K [B, 3, 3]``."""
+    def forward(self, x, K, det_thresh: float = 0.3, nms_kernel_size: int = 3,
+                is_training: bool = False, gt_det: Optional[Detections] = None) -> dict:
+        """``x [B, S, S, 3]`` normalized NHWC, ``K [B, 3, 3]``. Training takes
+        the detections ``gt_det`` instead of NMS and top-K."""
         c = self.cfg
         B = x.shape[0]
         g = c.grid_size
@@ -88,7 +97,13 @@ class MultiHMRNet(nn.Module):
 
         logits = self.mlp_classif(z)
         scores_grid = clamped_sigmoid(logits.float())[..., 0].reshape(B, g, g)
-        det = topk_detect(nms_maxpool(scores_grid, nms_kernel_size), det_thresh, c.max_people)
+        if is_training:
+            if gt_det is None:
+                raise ValueError("training requires GT detections (gt_det)")
+            det = gt_det
+        else:
+            det = topk_detect(nms_maxpool(scores_grid, nms_kernel_size), det_thresh,
+                              c.max_people)
         flat_idx = det.rows * g + det.cols
         scores_det = torch.gather(scores_grid.reshape(B, -1), 1, flat_idx) * det.valid
 
@@ -151,8 +166,10 @@ class MultiHMR:
         self.smpl_layer = SMPLXCameraLayer(
             body_model, person_center=cfg.person_center, joint_names=person_center_joint_names)
 
-    def forward(self, x, K, det_thresh: float = 0.3, nms_kernel_size: int = 3) -> dict:
-        out = self.net(x, K, det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
+    def forward(self, x, K, det_thresh: float = 0.3, nms_kernel_size: int = 3,
+                is_training: bool = False, gt_det: Optional[Detections] = None) -> dict:
+        out = self.net(x, K, det_thresh=det_thresh, nms_kernel_size=nms_kernel_size,
+                       is_training=is_training, gt_det=gt_det)
         return self.apply_body_model(out, K)
 
     def apply_body_model(self, out: dict, K) -> dict:

@@ -12,6 +12,12 @@ Precision follows the JAX package: matmuls and the stream in
 in fp32 and tanh-approximate in bf16, and an fp32 final LayerNorm.
 The JAX stream pre-pad is a TPU tiling choice and is left out; the kernel
 masks its ragged tail itself.
+
+Training: the attention backward is K3 and the LayerNorm backward analytic
+torch ops. ``remat_policy`` "block" recomputes each whole block in the backward
+pass (K1 and K2 run twice per block and step), "mlp" only the block's MLP
+(``torch.utils.checkpoint``, non-reentrant), as ``models/vit.py:290-312`` of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from multihmr_tpu.config import ViTConfig
-from multihmr_tpu_torch.ops.attention import attention_t
+from multihmr_tpu_torch.config import ViTConfig
+from multihmr_tpu_torch.ops.attention import flash_attention_qkv_t
 from multihmr_tpu_torch.ops.norm import layernorm_cm
 
 
@@ -95,7 +102,7 @@ class TAttention(nn.Module):
         B, D, N = x.shape
         h = self.num_heads
         qkv = self.qkv(x).reshape(B, 3, h, D // h, N)  # a view: token dim untouched
-        out = attention_t(qkv[:, 0], qkv[:, 1], qkv[:, 2])  # [B, h, Dh, N]
+        out = flash_attention_qkv_t(qkv)  # [B, h, Dh, N]
         return self.proj(out.reshape(B, D, N))
 
 
@@ -110,8 +117,9 @@ class TMlp(nn.Module):
 
 
 class TBlock(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, remat_mlp: bool = False):
         super().__init__()
+        self.remat_mlp = remat_mlp
         d = cfg.embed_dim
         self.norm1 = TLayerNorm(d)
         self.attn = TAttention(d, cfg.num_heads)
@@ -121,8 +129,21 @@ class TBlock(nn.Module):
         self.ls2 = TLayerScale(d, cfg.layerscale_init)
 
     def forward(self, x):
+        # one expression per branch: each temporary is freed as soon as it
+        # is consumed, so the allocator reuses its block for the next one
         x = x + self.ls1(self.attn(self.norm1(x, x.dtype)))
-        return x + self.ls2(self.mlp(self.norm2(x, x.dtype)))
+        return x + self.ls2(self._mlp(self.norm2(x, x.dtype)))
+
+    def _mlp(self, y):
+        return _maybe_checkpoint(self.mlp, y) if self.remat_mlp else self.mlp(y)
+
+
+def _maybe_checkpoint(fn, x):
+    """``fn(x)``, its activations recomputed in the backward pass when a
+    graph is being recorded."""
+    if not torch.is_grad_enabled():
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class DINOv2ViT(nn.Module):
@@ -130,16 +151,22 @@ class DINOv2ViT(nn.Module):
     [B, N, D]`` and ``cls_token [B, D]`` in ``dtype``. ``pos_embed`` is stored
     already resampled to the working grid."""
 
-    def __init__(self, cfg: ViTConfig, grid_size: int, dtype=torch.bfloat16):
+    def __init__(self, cfg: ViTConfig, grid_size: int, dtype=torch.bfloat16,
+                 remat_policy: str | None = None):
         super().__init__()
+        if remat_policy not in (None, "block", "mlp"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r} "
+                             "(expected 'block' or 'mlp')")
         self.cfg = cfg
         self.grid_size = grid_size
         self.dtype = dtype
+        self.remat_block = remat_policy == "block"
         d, p = cfg.embed_dim, cfg.patch_size
         self.patch_embed = nn.Linear(p * p * 3, d)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + grid_size * grid_size, d))
-        self.blocks = nn.ModuleList(TBlock(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(TBlock(cfg, remat_mlp=remat_policy == "mlp")
+                                    for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=1e-6)
 
     def init_weights(self, generator):
@@ -173,7 +200,7 @@ class DINOv2ViT(nn.Module):
 
         tokens = tokens.transpose(1, 2).contiguous()  # [B, D, 1+N] channels-major
         for blk in self.blocks:
-            tokens = blk(tokens)
+            tokens = _maybe_checkpoint(blk, tokens) if self.remat_block else blk(tokens)
         tokens = tokens.transpose(1, 2)  # [B, 1+N, D]
 
         tokens = F.layer_norm(tokens.float(), (tokens.shape[-1],),

@@ -56,6 +56,12 @@ def get_focal_length_from_fov(fov: float = 60, img_size: int = 512):
     return img_size / (2 * math.tan(math.radians(fov) / 2))
 
 
+def focal_length_normalization(x, f, fovn: int = 60, img_size: int = 448):
+    """``E = (fn/f) * E'`` (E inverse depth)."""
+    fn = get_focal_length_from_fov(fov=fovn, img_size=img_size)
+    return x * (fn / f)
+
+
 def undo_focal_length_normalization(y, f, fovn: int = 60, img_size: int = 448):
     """``E' = (f/fn) * E`` (inverse of the focal-length normalization)."""
     fn = get_focal_length_from_fov(fov=fovn, img_size=img_size)
@@ -63,6 +69,11 @@ def undo_focal_length_normalization(y, f, fovn: int = 60, img_size: int = 448):
 
 
 EPS_LOG = 1e-10
+
+
+def log_depth(x, eps: float = EPS_LOG):
+    """Depth → log depth."""
+    return torch.log(x + eps)
 
 
 def undo_log_depth(y, eps: float = EPS_LOG):

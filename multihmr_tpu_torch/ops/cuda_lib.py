@@ -2,9 +2,10 @@
 
 The sources under ``multihmr_tpu_torch/csrc/`` compile with ``nvcc`` into
 one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds), loaded with ``ctypes``. The library is built at first
-use into ``multihmr_tpu_torch/_build/``, named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
+build takes seconds), loaded with ``ctypes``: one ``nvcc -c`` per source,
+all started together, then one link. The library is built at first use into
+``multihmr_tpu_torch/_build/``, named by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -32,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of csrc/common.cuh
@@ -79,15 +80,30 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        failed = [link.returncode] if link.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     (BUILD_DIR / "build.log").write_text(log)
     return so, seconds
@@ -102,6 +118,11 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, f, i, p,
     ]
     lib.mhmr_flash_fwd_t.restype = i
+    lib.mhmr_flash_bwd_t.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+        ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, f, i, i, p,
+    ]
+    lib.mhmr_flash_bwd_t.restype = i
     lib.mhmr_layernorm_cm.argtypes = [p, p, p, p, i, i, i, f, i, i, p]
     lib.mhmr_layernorm_cm.restype = i
     lib.mhmr_error_string.argtypes = [i]

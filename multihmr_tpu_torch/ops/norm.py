@@ -6,6 +6,11 @@ tensor :func:`layernorm_cm` launches ``csrc/layernorm_cm.cu`` (one pass over
 x, fp32 statistics, affine, cast), on a CPU tensor it runs
 :func:`layernorm_cm_reference`. There is no fallback: a CUDA tensor the
 kernel does not take raises.
+
+:func:`layernorm_cm` is differentiable. Its backward is the analytic
+LayerNorm backward in torch ops on both devices (``_ln_bwd`` of the JAX
+package, which wrote no kernel for it): the fp32 statistics are recomputed
+from x, so only x and the scale are saved.
 """
 
 from __future__ import annotations
@@ -17,17 +22,22 @@ from multihmr_tpu_torch.ops import cuda_lib
 KERNEL = "layernorm_cm"
 
 
+def _wide(t):
+    """fp32 for bf16 and fp32 inputs; fp64 stays fp64 (``gradcheck``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def layernorm_cm_reference(x, scale, bias, eps: float = 1e-6,
                            out_dtype=torch.bfloat16):
     """Plain LayerNorm over dim 1 of ``[B, D, N]``: fp32 mean, fp32 variance
     of the centred values, affine, cast (``_ln_reference`` in the JAX
     package)."""
-    xf = x.float()
+    xf = _wide(x)
     mu = xf.mean(dim=1, keepdim=True)
     xc = xf - mu
     var = (xc * xc).mean(dim=1, keepdim=True)
     y = xc * torch.rsqrt(var + eps)
-    return (y * scale.float()[None, :, None] + bias.float()[None, :, None]).to(out_dtype)
+    return (y * _wide(scale)[None, :, None] + _wide(bias)[None, :, None]).to(out_dtype)
 
 
 def _layernorm_cm_cuda(x, scale, bias, eps, out_dtype):
@@ -55,12 +65,49 @@ def _layernorm_cm_cuda(x, scale, bias, eps, out_dtype):
     return y
 
 
-def layernorm_cm(x, scale, bias, eps: float = 1e-6, out_dtype=torch.bfloat16):
-    """LayerNorm over the channel dim of ``[B, D, N]`` → ``out_dtype``.
+def layernorm_cm_bwd(x, scale, g, eps: float = 1e-6):
+    """Analytic backward of :func:`layernorm_cm` for the output gradient
+    ``g``: (dx in x's dtype, dscale and dbias in fp32, or fp64 for fp64)."""
+    xf, gf = _wide(x), _wide(g)
+    mu = xf.mean(dim=1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=1, keepdim=True) + eps)
+    yhat = xc * rstd
+    dy = gf * _wide(scale)[None, :, None]
+    m1 = dy.mean(dim=1, keepdim=True)
+    m2 = (dy * yhat).mean(dim=1, keepdim=True)
+    dx = (rstd * (dy - m1 - yhat * m2)).to(x.dtype)
+    return dx, (gf * yhat).sum(dim=(0, 2)), gf.sum(dim=(0, 2))
 
-    CPU tensor: the plain version. CUDA tensor: kernel K2, or raise."""
+
+def _layernorm_cm_fwd(x, scale, bias, eps, out_dtype):
     if x.device.type == "cpu":
         return layernorm_cm_reference(x, scale, bias, eps, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"layernorm_cm: no kernel for device {x.device}")
     return _layernorm_cm_cuda(x, scale, bias, eps, out_dtype)
+
+
+class _LayerNormCM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, out_dtype):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _layernorm_cm_fwd(x, scale, bias, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = layernorm_cm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None
+
+
+def layernorm_cm(x, scale, bias, eps: float = 1e-6, out_dtype=torch.bfloat16):
+    """LayerNorm over the channel dim of ``[B, D, N]`` → ``out_dtype``.
+
+    CPU tensor: the plain version. CUDA tensor: kernel K2, or raise.
+    Differentiable in x, scale and bias; with no graph being recorded
+    (inference) it skips the autograd Function and its host cost."""
+    if not torch.is_grad_enabled():
+        return _layernorm_cm_fwd(x, scale, bias, eps, out_dtype)
+    return _LayerNormCM.apply(x, scale, bias, eps, out_dtype)

@@ -1,6 +1,6 @@
 """K1 port: channels-major attention, plain version against the JAX package.
 
-On the CPU ``flash_attention_t`` runs its plain version; it is held to the
+On the CPU ``_flash_fwd_impl_t`` runs its plain version; it is held to the
 JAX transposed flash kernel run as the JAX tests run it (Pallas interpret
 mode) and to the JAX ``mha_reference_t``. Inputs are fp32, made from a seed.
 Tolerance 2e-5 on out and lse: fp32 softmax-weighted sums of O(1) values
@@ -30,7 +30,7 @@ def test_plain_matches_pallas_kernel(rng, n):
     q, k, v = _qkv(rng, 1, 2, n)
     out_j, lse_j = jatt._flash_fwd_impl_t(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
-    out_t, lse_t = tatt.flash_attention_t(torch.from_numpy(q), torch.from_numpy(k),
+    out_t, lse_t = tatt._flash_fwd_impl_t(torch.from_numpy(q), torch.from_numpy(k),
                                           torch.from_numpy(v))
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=TOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=TOL)
@@ -47,7 +47,7 @@ def test_kv_len_masks_junk(rng, kv_len):
         t[..., kv_len:] = rng.normal(size=t[..., kv_len:].shape) * 50
     out_j, lse_j = jatt._flash_fwd_impl_t(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, kv_len=kv_len)
-    out_t, lse_t = tatt.flash_attention_t(torch.from_numpy(q), torch.from_numpy(k),
+    out_t, lse_t = tatt._flash_fwd_impl_t(torch.from_numpy(q), torch.from_numpy(k),
                                           torch.from_numpy(v), kv_len=kv_len)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=TOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=TOL)
@@ -60,19 +60,19 @@ def test_kv_len_masks_junk(rng, kv_len):
 def test_explicit_scale(rng):
     q, k, v = _qkv(rng, 1, 1, 64)
     ref = jatt.mha_reference_t(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=0.05)
-    out = tatt.attention_t(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                           scale=0.05)
+    out = tatt.flash_attention_t(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), scale=0.05)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
 
 
 def test_cpu_tensor_does_not_launch(rng):
     cuda_lib.reset_launches()
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 2, 50))
-    tatt.attention_t(q, k, v)
+    tatt.flash_attention_t(q, k, v)
     assert cuda_lib.LAUNCHES[tatt.KERNEL] == 0
 
 
 def test_other_devices_raise():
     q = torch.empty((1, 2, 64, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        tatt.flash_attention_t(q, q, q)
+        tatt._flash_fwd_impl_t(q, q, q)

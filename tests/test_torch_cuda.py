@@ -11,6 +11,12 @@ version computed in fp32 from the same bf16 inputs: out 2e-2 (P is rounded to
 bf16 before P.V and out is rounded to bf16; |out| < 4), lse 1e-3 (fp32
 statistics from fp32 scores). LayerNorm: fp32 out 1e-5; bf16 out one bf16
 ulp of |y| <= 8 (2^-7 relative).
+
+Flash backward (K3, K4a + K4b) against the plain fp32 backward on the same
+inputs, each gradient's max error relative to its largest magnitude: fp32
+1e-4 (fp32 sums in other orders, dq's by atomics in a varying order); bf16
+1e-2 (the kernels round p and ds to bf16 before their products, as the TPU
+kernels do, and the outputs to bf16: 2^-9 relative each).
 """
 
 import numpy as np
@@ -44,7 +50,7 @@ def test_flash_attention_kernel(dev, dtype, n, kv_len):
         qkv[..., kv_len:] = 100.0  # junk past kv_len
     q, k, v = qkv.reshape(2, 3, 4, 64, n).unbind(1)  # strided views, as in the ViT
     cuda_lib.reset_launches()
-    out, lse = attention.flash_attention_t(q, k, v, kv_len=kv_len)
+    out, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES[attention.KERNEL] == 1
     ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=kv_len)
@@ -58,10 +64,10 @@ def test_flash_attention_kernel(dev, dtype, n, kv_len):
 def test_flash_attention_rejects(dev):
     q = torch.zeros((1, 2, 32, 16), device=dev)
     with pytest.raises(ValueError, match="Dh=64"):
-        attention.flash_attention_t(q, q, q)
+        attention._flash_fwd_impl_t(q, q, q)
     q = torch.zeros((1, 2, 64, 16), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
-        attention.flash_attention_t(q, q, q)
+        attention._flash_fwd_impl_t(q, q, q)
 
 
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
@@ -90,8 +96,60 @@ def test_layernorm_rejects(dev):
         norm.layernorm_cm(x, s, s)
 
 
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _bwd_inputs(dev, dtype, n, kv_len, heads=4, seed=0):
+    """q, k, v as strided views of one projection output (junk past
+    kv_len), o and lse from the plain forward, a random dO."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((2, 3 * heads * 64, n), device=dev, generator=g).to(dtype)
+    if kv_len is not None:
+        qkv[..., kv_len:] = 30.0
+    q, k, v = qkv.reshape(2, 3, heads, 64, n).unbind(1)
+    o, lse = attention.mha_reference_t(q, k, v, kv_len=kv_len)
+    do = torch.randn(q.shape, device=dev, generator=g).to(dtype)
+    return q, k, v, o, lse, do
+
+
+def _rel(a, b):
+    return _max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,kv_len", [(97, None), (640, 577), (2305, None)])
+def test_flash_backward_kernels(dev, dtype, n, kv_len):
+    q, k, v, o, lse, do = _bwd_inputs(dev, dtype, n, kv_len)
+    ref = attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=kv_len)
+    cuda_lib.reset_launches()
+    fused = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=True)
+    two = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=False)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD] == 1
+    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD_DQ] == 1
+    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD_DKV] == 1
+    for name, a, b, r in zip("qkv", fused, two, ref):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        assert _rel(a, r) <= BWD_TOL[dtype], (name, _rel(a, r))
+        assert _rel(b, r) <= BWD_TOL[dtype], (name, _rel(b, r))
+    if kv_len is not None:  # keys past kv_len: exact zeros
+        for t in fused[1:] + two[1:]:
+            assert not t[..., kv_len:].any()
+
+
+def test_flash_backward_into_packed_gradient(dev):
+    q, k, v, o, lse, do = _bwd_inputs(dev, torch.bfloat16, 300, None)
+    packed = torch.empty((2, 3) + q.shape[1:], dtype=q.dtype, device=dev)
+    out = attention._flash_bwd_impl_t(q, k, v, o, lse, do, out=packed.unbind(1))
+    want = attention._flash_bwd_impl_t(q, k, v, o, lse, do)
+    for a, b, c in zip(out, packed.unbind(1), want):
+        assert a.data_ptr() == b.data_ptr()
+        # dk, dv equal; dq may differ by a bf16 ulp (atomics in another order)
+        assert _rel(b, c) <= BWD_TOL[torch.bfloat16]
+
+
 def test_tiny_slice_gpu_matches_cpu(dev):
-    from multihmr_tpu.config import ModelConfig, ViTConfig
+    from multihmr_tpu_torch.config import ModelConfig, ViTConfig
     from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
     from multihmr_tpu_torch.bodymodel.core import BodyModel
     from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet

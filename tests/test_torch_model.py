@@ -156,9 +156,10 @@ def test_port_imports_without_jax():
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\nsys.modules['flax'] = None\n"
+        "sys.modules['multihmr_tpu'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) "
+        "assert not any(k in ('jax', 'multihmr_tpu') or k.startswith(('jax.', 'flax', 'multihmr_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok', len(sys.modules))\n"
     )
