@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``multihmr_tpu_torch/csrc`` and drives
-the port's two paths with seeded random weights and the synthetic
-SMPL-X-sized body model: single-image ``multiHMR_896_L`` inference through
-the demo's per-image entry point, and ``multiHMR_896_L`` training through
-``Trainer.fit``. Phases, one line each:
+the port's paths with seeded random weights and the synthetic SMPL-X-sized
+body model: single-image ``multiHMR_896_L`` inference through the demo's
+per-image entry point, ``multiHMR_896_L`` training through ``Trainer.fit``,
+and the BEDLAM training CLI (``cli/train.py``) with its epoch-end BEDLAM and
+EHF evaluation, on the ViT's standard stream (``--tp_mode ring``, K5) and its
+channels-major one (``heads``, K1 and K2). Phases, one line each:
 
   1. the card, its name and power limit (nvidia-smi);
   2. the kernel build;
@@ -14,8 +16,9 @@ the demo's per-image entry point, and ``multiHMR_896_L`` training through
      lengths, bf16 and fp32, with keys masked past kv_len, and at batch 2
      (the training path's shape);
   4. K2 (channels-major LayerNorm) against its plain version;
-  5. multiHMR_672_S in fp32: the card (kernels) against the CPU (plain
-     versions), same weights and image;
+  5. multiHMR_672_S in fp32 (LayerScale 0.5, so that the blocks move the
+     stream): the card (kernels) against the CPU (plain versions), same
+     weights and image, with 12 K1 and 24 K2 launches;
   6. multiHMR_896_L in bf16 on three images: finite meshes, and 24 K1 and
      48 K2 launches per image;
   7. times (CUDA events, medians after warm-up): the 896_L forward at batch 1,
@@ -30,12 +33,35 @@ the demo's per-image entry point, and ``multiHMR_896_L`` training through
      blocks), the card against the CPU: loss terms and gradients;
  10. multiHMR_896_L bf16 training, max_people 8, batch 2: 5 steps through
      ``Trainer.fit`` on collated synthetic samples (finite losses; 24 K1,
-     24 K3 and 48 K2 launches per step), then train steps with remat none,
-     "mlp" and "block", each with its launches per step, step time and
-     peak memory;
+     24 K3 and 48 K2 launches per step), then, for both ViT streams, train
+     steps with remat none, "mlp" and "block" at batch 2 (launches per step,
+     step time, peak memory) and batch 1 (peak memory), and the fit of
+     ``train/memory.py``'s constants to those peaks;
  11. times of the backward kernels, their plain version and PyTorch's
      scaled_dot_product_attention backward at [1, 16, 64, 4097] bf16, with
-     the least time the card could take for each kernel's work.
+     the least time the card could take for each kernel's work;
+ 12. K5 (standard-layout flash-attention forward) against its plain version
+     at the ViT's lengths, bf16 and fp32, batch 1 and 2, on strided views of
+     one [B, N, 3 * 16 * 64] projection, into the merged [B, N, H, 64] and
+     the [B, H, 64, N] output layouts; four deliberately broken copies of
+     K5, built from its source in a temporary directory, which that limit
+     must fail; then K5, K1 and the SDPA forward timed at [1, 16, 4097, 64]
+     bf16, with K5's bound;
+ 13. the standard stream (``tp_mode="ring"``): multiHMR_672_S fp32 card
+     against CPU (inference at LayerScale 0.5 as in phase 5, and one batch-2
+     train step cut to 4 blocks), then multiHMR_896_L bf16 at
+     LayerScale 0.5, ring against heads and each against the fp32 stream, on
+     the same weights (patch tokens), the ring path's finite meshes with 24
+     K5 and no K1 or K2 per image, and both streams' batch-1 forward times;
+ 14. the training CLI at full width and depth in a temporary directory
+     holding seeded BEDLAM (1280x720) and EHF (1600x1200) trees: 896_L,
+     ``--tp_mode ring``, batch 2, 4 steps, then evaluation of 2 BEDLAM and 2
+     EHF images (finite losses, K5/K3 launches per step as the remat policy
+     ``--remat auto`` chose implies and no K1 or K2, 24 K5 per eval image, a
+     checkpoint, finite PVE on both valsets); ``--eval_only 1 --pretrained``
+     of that checkpoint on EHF GT rewritten as its own predictions (24 K5 per
+     image, recall 100, PA-PVE under 1 mm); then 2 steps with
+     ``--tp_mode heads`` (24 K1, 24 K3, 48 K2 per step).
 
 Then a JSON line of the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
@@ -55,7 +81,19 @@ import traceback
 import numpy as np
 import torch
 
-K1_TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 1e-3)}  # (out, lse)
+# flash forward (K1, K5) against its plain version, computed in fp32 from the
+# same inputs and rounded to the kernel's dtype. fp32 out: 1e-5 abs (sums in
+# another order). bf16 out, elementwise:
+#   |out - ref| <= 2^-7 |ref| + 2^-5 rms(ref)
+# Both sides round out to bf16, so they may differ by one ulp (at most 2^-7
+# of the value); and the kernel rounds P to bf16 (2^-8 relative) before P.V,
+# a random error of std ~2^-10 of the outputs' scale per element, whose
+# maximum over millions of elements the 2^-5 rms(ref) floor covers ~4x.
+# lse (fp32 statistics on both sides, in both dtypes): 5e-5 abs.
+FWD_TOL_FP32 = 1e-5
+BF16_ULP = 2 ** -7
+BF16_FLOOR_RMS = 2 ** -5
+LSE_TOL = 5e-5
 K2_TOL_FP32 = 1e-5  # abs, fp32 output
 K2_TOL_BF16_REL = 2 ** -8  # relative, bf16 output: half an ulp + fp32 noise
 E2E_TOL = 1e-3  # 672_S card vs CPU, relative to each output's largest magnitude
@@ -66,6 +104,21 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # 672_S fp32 train step, card vs CPU: loss terms and each parameter's
 # gradient, relative to the largest magnitude
 TRAIN_TOL = 1e-3
+# 896_L bf16 on the same weights: relative L2 error of the final-norm patch
+# tokens, ring against heads and each stream against the fp32 heads stream
+# (the control). bf16 rounds at other places on the two streams (F.linear
+# against baddbmm epilogues, K5 against K1, fp32 F.layer_norm against K2)
+# over 24 blocks
+STREAM_TOL = 2e-2
+# ring no further from the fp32 control than heads is, by more than this
+STREAM_RATIO = 1.1
+# LayerScale init of the models whose outputs phases 5 and 13 compare:
+# DINOv2's 1e-5 scales every block's branches down to about 1e-5 of the
+# stream, so a check of the outputs would not see the blocks (nor their
+# kernels); at 0.5 each block moves the stream by its own size. The train
+# steps of phases 9 and 13 keep 1e-5: their gradient checks, each relative
+# to its parameter's own largest gradient, see every block at any scale
+LAYERSCALE = 0.5
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
@@ -127,6 +180,24 @@ CASES = ([(n, dt, None, 1) for n in (2305, 4097, 8465) for dt in (torch.bfloat16
          + [(4097, dt, None, 2) for dt in (torch.bfloat16, torch.float32)])
 
 
+def fwd_check(out, ref_out, lse, ref_lse):
+    """One flash forward against its plain version: (ok, max abs out error,
+    text without the verdict). bf16: the text gives what the error needs beyond one ulp of
+    |ref| against the floor 2^-5 rms(ref)."""
+    r = ref_out.float()
+    d = (out.float() - r).abs()
+    e_out, e_lse = d.max().item(), (lse - ref_lse).abs().max().item()
+    if out.dtype == torch.float32:
+        ok, tol = e_out <= FWD_TOL_FP32, f"tol {FWD_TOL_FP32:g}"
+    else:
+        beyond = (d - BF16_ULP * r.abs()).max().item()
+        floor = BF16_FLOOR_RMS * r.square().mean().sqrt().item()
+        ok, tol = beyond <= floor, (f"beyond 2^-7|ref| {beyond:.3e}, tol 2^-7|ref| + "
+                                    f"2^-5 rms(ref) = {floor:.3e}")
+    ok = ok and e_lse <= LSE_TOL
+    return ok, e_out, f"out err {e_out:.3e} ({tol}), lse err {e_lse:.3e} (tol {LSE_TOL:g})"
+
+
 def check_k1(attention):
     errs = {}
     for n, dt, kv_len, batch in CASES:
@@ -134,13 +205,10 @@ def check_k1(attention):
         out, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=kv_len)
         ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=kv_len)
         lim = n if kv_len is None else kv_len
-        e_out = (out[..., :lim].float() - ref_out[..., :lim].float()).abs().max().item()
-        e_lse = (lse[..., :lim] - ref_lse[..., :lim]).abs().max().item()
-        t_out, t_lse = K1_TOL[dt]
-        ok = e_out <= t_out and e_lse <= t_lse
+        ok, e_out, text = fwd_check(out[..., :lim], ref_out[..., :lim], lse[..., :lim],
+                                    ref_lse[..., :lim])
         name = case_name(n, dt, kv_len, batch)
-        log(3, f"K1 {name}: out err {e_out:.3e} (tol {t_out:g}), "
-               f"lse err {e_lse:.3e} (tol {t_lse:g}) {'ok' if ok else 'FAIL'}")
+        log(3, f"K1 {name}: {text} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K1 {name} disagrees with its plain version")
         errs[(n, dt, kv_len, batch)] = e_out
@@ -190,27 +258,38 @@ def rel_err(a, b):
     return ((a - b).abs().max() / max(a.abs().max().item(), 1.0)).item()
 
 
-def check_e2e(build_model, named_config, demo):
-    cfg = dataclasses.replace(named_config("multiHMR_672_S"), compute_dtype="float32")
+# forward launches (K1, K2, K5) of one 672_S image (12 blocks) per stream
+E2E_LAUNCHES = {"heads": (12, 24, 0), "ring": (0, 0, 12)}
+
+
+def check_e2e(build_model, named_config, demo, cuda_lib, attention, norm, phase=5,
+              tp_mode="heads"):
+    base = named_config("multiHMR_672_S")
+    cfg = dataclasses.replace(base, compute_dtype="float32", vit_override=dataclasses.replace(
+        base.vit, layerscale_init=LAYERSCALE))
     img = synthetic_image(7, 480, 640)
     outs = {}
     for dev in ("cpu", "cuda"):
-        model = build_model("multiHMR_672_S", device=dev, seed=0, cfg=cfg)
+        model = build_model("multiHMR_672_S", device=dev, seed=0, cfg=cfg, tp_mode=tp_mode)
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         outs[dev] = demo.predict(model, img)
         torch.cuda.synchronize()
-        log(5, f"672_S fp32 forward on {dev}: {time.perf_counter() - t0:.2f} s")
+        counts = tuple(cuda_lib.LAUNCHES[k] for k in (attention.KERNEL, norm.KERNEL,
+                                                      attention.KERNEL_STD))
+        log(phase, f"672_S fp32 forward ({tp_mode}) on {dev}: {time.perf_counter() - t0:.2f} s")
     a, b = outs["cpu"], outs["cuda"]
     same_det = all(torch.equal(getattr(a["det"], f), getattr(b["det"], f).cpu())
                    for f in ("rows", "cols", "valid"))
     errs = {k: rel_err(a[k], b[k]) for k in
             ("scores", "scores_det", "loc", "dist", "rotvec", "v3d", "j3d", "j2d")}
     n_a, n_b = int(a["det"].valid.sum()), int(b["det"].valid.sum())
-    ok = same_det and n_a == n_b and max(errs.values()) <= E2E_TOL
-    log(5, f"672_S card vs CPU: detections {'equal' if same_det else 'DIFFER'}, "
-           f"persons {n_b} vs {n_a}, rel errs "
-           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-           + f" (tol {E2E_TOL:g}) {'ok' if ok else 'FAIL'}")
+    ok = (same_det and n_a == n_b and max(errs.values()) <= E2E_TOL
+          and counts == E2E_LAUNCHES[tp_mode])
+    log(phase, f"672_S ({tp_mode}) card vs CPU: detections {'equal' if same_det else 'DIFFER'}, "
+               f"persons {n_b} vs {n_a}, rel errs "
+               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+               + f" (tol {E2E_TOL:g}); card launches K1/K2/K5 {counts} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("672_S on the card disagrees with the CPU")
 
@@ -328,7 +407,11 @@ def check_bwd(attention, cuda_lib):
     return errs, two_pass
 
 
-def check_train_e2e(cuda_lib, attention, norm):
+# train-step launches (K1, K3, K2, K5) with 4 ViT blocks, per stream
+TRAIN_E2E_LAUNCHES = {"heads": (4, 4, 8, 0), "ring": (0, 4, 0, 4)}
+
+
+def check_train_e2e(cuda_lib, attention, norm, phase=9, tp_mode="heads"):
     """One 672_S fp32 train step at batch 2 (4 ViT blocks), card against CPU."""
     from multihmr_tpu_torch.config import VITS
     from multihmr_tpu_torch.factory import build_model
@@ -341,7 +424,7 @@ def check_train_e2e(cuda_lib, attention, norm):
     batch = synthetic_batch(2, cfg.max_people, cfg.img_size, seed=1)
     res = {}
     for dev in ("cpu", "cuda"):
-        model = build_model("multiHMR_672_S", device=dev, seed=0, cfg=cfg)
+        model = build_model("multiHMR_672_S", device=dev, seed=0, cfg=cfg, tp_mode=tp_mode)
         step = make_train_step(model, torch.optim.SGD(model.net.parameters(), lr=0.0))
         cuda_lib.reset_launches()
         t0 = time.perf_counter()
@@ -349,22 +432,23 @@ def check_train_e2e(cuda_lib, attention, norm):
         grads = {k: p.grad.detach().cpu() for k, p in model.net.named_parameters()
                  if p.grad is not None}
         res[dev] = ({k: v.cpu() for k, v in terms.items()}, grads, dict(cuda_lib.LAUNCHES))
-        log(9, f"672_S fp32 train step on {dev}: {time.perf_counter() - t0:.2f} s")
+        log(phase, f"672_S fp32 train step ({tp_mode}) on {dev}: "
+                   f"{time.perf_counter() - t0:.2f} s")
     (ta, ga, _), (tb, gb, launches) = res["cpu"], res["cuda"]
     if sorted(ga) != sorted(gb):
         raise AssertionError("the card and the CPU gave gradients to other parameters")
     e_terms = max(_grad_rel(tb[k], ta[k]) for k in ta if float(ta[k].abs()) > 0)
     e_grads = {k: _grad_rel(gb[k], ga[k]) for k in ga if float(ga[k].abs().max()) > 0}
     worst = max(e_grads, key=e_grads.get)
-    counts = (launches.get(attention.KERNEL, 0), launches.get(attention.KERNEL_BWD, 0),
-              launches.get(norm.KERNEL, 0))
-    ok = (e_terms <= TRAIN_TOL and e_grads[worst] <= TRAIN_TOL and counts == (4, 4, 8)
-          and float(tb["finite"]) == 1.0)
-    log(9, f"672_S fp32 train step, batch 2 (ViT cut to 4 of 12 blocks), card vs CPU: loss total "
-           f"{float(tb['total']):.4f} vs {float(ta['total']):.4f}, worst loss-term rel err "
-           f"{e_terms:.2e}, worst gradient rel err {e_grads[worst]:.2e} ({worst}) over "
-           f"{len(e_grads)} parameters (tol {TRAIN_TOL:g}); card launches K1/K3/K2 "
-           f"{counts[0]}/{counts[1]}/{counts[2]} {'ok' if ok else 'FAIL'}")
+    counts = tuple(launches.get(k, 0) for k in (attention.KERNEL, attention.KERNEL_BWD,
+                                                norm.KERNEL, attention.KERNEL_STD))
+    ok = (e_terms <= TRAIN_TOL and e_grads[worst] <= TRAIN_TOL
+          and counts == TRAIN_E2E_LAUNCHES[tp_mode] and float(tb["finite"]) == 1.0)
+    log(phase, f"672_S fp32 train step ({tp_mode}), batch 2 (ViT cut to 4 of 12 blocks), card "
+               f"vs CPU: loss total {float(tb['total']):.4f} vs {float(ta['total']):.4f}, worst "
+               f"loss-term rel err {e_terms:.2e}, worst gradient rel err {e_grads[worst]:.2e} "
+               f"({worst}) over {len(e_grads)} parameters (tol {TRAIN_TOL:g}); card launches "
+               f"K1/K3/K2/K5 {counts} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("672_S train step on the card disagrees with the CPU")
 
@@ -390,6 +474,13 @@ def train_samples(n_batches, batch, max_people, seed=0):
                       for _ in range(int(rng.integers(1, max_people + 3)))]
             samples.append({"image": normalize_nhwc(img), "K": K, "humans": humans})
         yield collate_padded(samples, max_people)
+
+
+# launches per train step (K1, K3, K2, K5) per ViT stream and remat policy
+STEP_LAUNCHES = {
+    "heads": {"none": (24, 24, 48, 0), "mlp": (24, 24, 48, 0), "block": (48, 24, 96, 0)},
+    "ring": {"none": (0, 24, 0, 24), "mlp": (0, 24, 0, 24), "block": (0, 24, 0, 48)},
+}
 
 
 def run_train_896(cuda_lib, attention, norm):
@@ -430,25 +521,56 @@ def run_train_896(cuda_lib, attention, norm):
     del model, trainer, step, counted_step  # free the weights and Adam state
     torch.cuda.empty_cache()
 
-    # each variant: 6 steps on a fresh model (steps 0-1 warm up)
-    want = {"none": (24, 24, 48), "mlp": (24, 24, 48), "block": (48, 24, 96)}
-    steps = {}
-    for policy, counts in want.items():
-        cuda_lib.reset_launches()  # this variant's run starts here
-        r = run("multiHMR_896_L", batch=2, steps=6, remat_policy=policy, device="cuda",
-                log=lambda s: None)
-        got = tuple(cuda_lib.LAUNCHES[k] / 6 for k in names)  # read just after it
-        ok = got == counts and r["finite"] and all(np.isfinite(r["losses"]))
-        label = f"remat {policy}"
-        log(10, f"896_L bf16 train step, batch 2, {label}: {r['median_ms']:.1f} ms/step "
-               f"(CUDA events, median of steps 2-5), peak memory {r['peak_gib']:.2f} GiB, losses "
-               + ", ".join(f"{x:.3f}" for x in r["losses"])
-               + f"; launches per step K1/K3/K2 {got} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"896_L train step ({label}) check failed")
-        steps[label] = (r["median_ms"], r["peak_gib"])
-        torch.cuda.empty_cache()
+    # each variant on a fresh model: batch 2 for 6 steps (steps 0-1 warm up),
+    # batch 1 for 3 steps (its peak memory, for the memory fit)
+    names += (attention.KERNEL_STD,)
+    steps, peaks = {}, {}
+    for tp_mode in ("heads", "ring"):
+        for policy, counts in STEP_LAUNCHES[tp_mode].items():
+            for batch, n_steps in ((2, 6), (1, 3)):
+                cuda_lib.reset_launches()  # this variant's run starts here
+                r = run("multiHMR_896_L", batch=batch, steps=n_steps, remat_policy=policy,
+                        device="cuda", log=lambda s: None, tp_mode=tp_mode)
+                got = tuple(cuda_lib.LAUNCHES[k] / n_steps for k in names)  # read just after it
+                ok = got == counts and r["finite"] and all(np.isfinite(r["losses"]))
+                label = f"{tp_mode} remat {policy}"
+                log(10, f"896_L bf16 train step ({label}), batch {batch}: "
+                        f"{r['median_ms']:.1f} ms/step (CUDA events, median of steps 2-"
+                        f"{n_steps - 1}), peak memory {r['peak_gib']:.2f} GiB, losses "
+                        + ", ".join(f"{x:.3f}" for x in r["losses"])
+                        + f"; launches per step K1/K3/K2/K5 {got} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"896_L train step ({label}, batch {batch}) check failed")
+                peaks[(tp_mode, policy, batch)] = r["peak_gib"]
+                if batch == 2:
+                    steps[label] = (r["median_ms"], r["peak_gib"])
+                torch.cuda.empty_cache()
+    memory_fit(peaks, train_config("multiHMR_896_L"))
     return launches, steps
+
+
+def memory_fit(peaks, cfg):
+    """Per stream and remat policy, the peak's slope between batch 1 and 2 in
+    bytes per ViT token-dim, and what is left at batch 1 once the weights'
+    16 bytes per parameter and the activations are taken off: the constants
+    of ``train/memory.py``."""
+    from multihmr_tpu_torch.train.memory import approx_param_count, token_dims
+
+    td, weights = token_dims(cfg, 1), approx_param_count(cfg) * 16
+    fit = {}
+    for (tp_mode, policy, batch), peak in peaks.items():
+        if batch == 1:
+            p1, p2 = peak * 2 ** 30, peaks[(tp_mode, policy, 2)] * 2 ** 30
+            slope = (p2 - p1) / td
+            fit[(tp_mode, policy)] = (slope, p1 - slope * td - weights)
+    for (tp_mode, policy), (slope, fixed) in fit.items():
+        log(10, f"memory fit ({tp_mode}, remat {policy}): {slope:.2f} bytes per token-dim, "
+                f"{fixed / 1e9:.3f} GB fixed (token-dims per image {td}, weights "
+                f"{weights / 1e9:.3f} GB)")
+    act = {p: max(fit[(t, p)][0] for t in ("heads", "ring")) for p in STEP_LAUNCHES["heads"]}
+    log(10, "memory fit, larger of the two streams: _ACT_BYTES_PER_TOKEN_DIM "
+            + ", ".join(f"{p} {a:.2f}" for p, a in act.items())
+            + f"; _FIXED_BYTES {max(f for _, f in fit.values()) / 1e9:.3f} GB")
 
 
 def time_bwd(attention, card):
@@ -488,6 +610,376 @@ def time_bwd(attention, card):
             for name in t}
 
 
+def std_qkv_views(n, dtype, heads=16, seed=0, batch=1):
+    """q, k, v as the standard-stream ViT makes them: [B, H, N, 64] views of
+    one [B, N, 3*H*64] projection output."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((batch, n, 3 * heads * 64), device="cuda", generator=g).to(dtype)
+    return qkv.reshape(batch, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+# K5's output layouts: the merged [B, N, H, 64] buffer the ViT reads, and the
+# JAX kernel's [B, H, 64, N]
+K5_LAYOUTS = {
+    "[B,N,H,64]": lambda B, H, N, dt: torch.empty((B, N, H, 64), dtype=dt,
+                                                  device="cuda").transpose(1, 2),
+    "[B,H,64,N]": lambda B, H, N, dt: torch.empty((B, H, 64, N), dtype=dt,
+                                                  device="cuda").transpose(2, 3),
+}
+
+
+def check_k5(attention):
+    """K5 against its plain version; returns the max abs out error at
+    [B, 16, 4097, 64] bf16, B = 1 and 2."""
+    worst = 0.0
+    for n in (2305, 4097, 8465):
+        for dt in (torch.bfloat16, torch.float32):
+            for batch in (1, 2):
+                q, k, v = std_qkv_views(n, dt, seed=n, batch=batch)
+                ref = [attention.flash_fwd_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+                       for b in range(batch)]  # one image at a time: [16, N, N] fp32 each
+                ref_out, ref_lse = (torch.cat(parts) for parts in zip(*ref))
+                del ref
+                for layout, make in K5_LAYOUTS.items():
+                    out, lse = attention._flash_fwd_std(q, k, v, out=make(batch, 16, n, dt))
+                    ok, e_out, text = fwd_check(out, ref_out, lse, ref_lse)
+                    name = f"[{batch},16,{n},64] {str(dt)[6:]} into {layout}"
+                    log(12, f"K5 {name}: {text} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"K5 {name} disagrees with its plain version")
+                    if (n, dt) == (4097, torch.bfloat16):
+                        worst = max(worst, e_out)
+                    del out, lse
+                del q, k, v, ref_out, ref_lse
+                torch.cuda.empty_cache()
+    return worst
+
+
+# deliberately broken copies of K5's bf16 path, one textual change each to
+# csrc/flash_fwd_std.cu: phase 12's limit must fail every one. The earlier
+# 2e-2 abs limit passes the last, whose error is 1/64 of |out| (|out| < 0.3
+# on these inputs)
+_PV_MMA = "mma_bf16(o[2 * dp + 1], a, b[2], b[3]);"
+K5_MUTANTS = {
+    "P.V k-step 3 reads the neighbouring v sub-tile": (
+        "8 * (2 * dp + mi / 2)]);", "8 * (2 * (kk == 3 ? dp ^ 1 : dp) + mi / 2)]);"),
+    "channels 56-63 of keys 48-63 of every kv tile dropped": (
+        _PV_MMA, "if (kk != 3 || dp != 3) " + _PV_MMA),
+    "channels 56-63 of keys 48-63 of the first kv tile dropped": (
+        _PV_MMA, "if (j != 0 || kk != 3 || dp != 3) " + _PV_MMA),
+    "output normalised by a row sum 1/64 too large": (
+        "inv[r] = 1.f / l;", "inv[r] = 1.f / (l * 1.015625f);"),
+}
+
+
+def check_k5_mutants(attention, cuda_lib):
+    """Build each mutant from a copy of csrc/flash_fwd_std.cu in a temporary
+    directory (one nvcc each, all started together), run it through K5's
+    wrapper at [1, 16, 4097, 64] bf16 and hold it to phase 12's limit, which
+    must fail. Returns {mutant: max abs out error}."""
+    import ctypes
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    src = (cuda_lib.CSRC / "flash_fwd_std.cu").read_text()
+    q, k, v = std_qkv_views(4097, torch.bfloat16, seed=4097)
+    ref_out, ref_lse = attention.flash_fwd_reference(q, k, v)
+    sound = cuda_lib.library().mhmr_flash_fwd_std
+    launches = cuda_lib.LAUNCHES[attention.KERNEL_STD]
+    readings, library = {}, cuda_lib.library
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {}
+        for i, (name, (old, new)) in enumerate(K5_MUTANTS.items()):
+            if src.count(old) != 1:
+                raise AssertionError(f"mutant {name!r}: its site is not in the kernel source")
+            d = Path(tmp) / f"m{i}"
+            d.mkdir()
+            shutil.copy(cuda_lib.CSRC / "common.cuh", d)
+            (d / "flash_fwd_std.cu").write_text(src.replace(old, new))
+            builds[name] = (d / "lib.so", subprocess.Popen(
+                [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+                 str(d / "flash_fwd_std.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (so, proc) in builds.items():
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise AssertionError(f"mutant {name!r} did not build:\n{text}")
+            lib = ctypes.CDLL(str(so))
+            lib.mhmr_flash_fwd_std.argtypes = sound.argtypes
+            lib.mhmr_flash_fwd_std.restype = sound.restype
+            cuda_lib.library = lambda lib=lib: lib  # noqa: E731
+            try:
+                out, lse = attention._flash_fwd_std(q, k, v)
+            finally:
+                cuda_lib.library = library
+            passed, e_out, text = fwd_check(out, ref_out, lse, ref_lse)
+            log(12, f"K5 mutant ({name}) [1,16,4097,64] bf16: {text}; the old "
+                    f"2e-2 abs limit {'passes' if e_out <= 2e-2 else 'fails'} it; phase 12's "
+                    f"limit {'PASSES IT: FAIL' if passed else 'fails it: ok'}")
+            if passed:
+                raise AssertionError(f"phase 12's limit passes the broken K5 ({name})")
+            readings[name] = e_out
+    cuda_lib.LAUNCHES[attention.KERNEL_STD] = launches  # the mutants' launches do not count
+    return readings
+
+
+def time_k5(attention, card):
+    """K5, its plain version, the SDPA forward (on the same views) and K1
+    (on the channels-major views) at the 896_L shape, bf16."""
+    F = torch.nn.functional
+    q, k, v = std_qkv_views(4097, torch.bfloat16)
+    B, H, N, Dh = q.shape
+    k5 = cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20)
+    plain = cuda_ms(lambda: attention.flash_fwd_reference(q, k, v), iters=20)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
+    qt, kt, vt = qkv_views(4097, torch.bfloat16)
+    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(qt, kt, vt), iters=20)
+    bound = bound_ms(4 * N * N * Dh * B * H, 4 * B * H * N * Dh * 2 + B * H * N * 4)
+    log(12, f"K5 [1,16,4097,64] bf16 (strided views of the projection): kernel {k5:.4f} ms, "
+            f"plain {plain:.4f} ms, SDPA forward on the same views {lib:.4f} ms, "
+            f"K1 [1,16,64,4097] {k1:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    return (k5, plain, lib, *bound)
+
+
+def check_streams_896(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attention,
+                      norm, card):
+    """896_L bf16 with LayerScale LAYERSCALE, ring against heads on the card
+    with the same weights, and each against the fp32 heads stream: patch
+    tokens; then the ring path's launches and finite meshes per image, and
+    both streams' batch-1 forward times (turns heads, ring, ring, heads)."""
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+
+    base = named_config("multiHMR_896_L")
+    cfg = dataclasses.replace(base, vit_override=dataclasses.replace(
+        base.vit, layerscale_init=LAYERSCALE))
+    pre = preprocess_array(synthetic_image(0, 480, 640), 896)
+    x, K = (torch.from_numpy(a)[None].cuda() for a in (pre.x, pre.K))
+    control = build_model(device="cuda", seed=0, cfg=dataclasses.replace(
+        cfg, compute_dtype="float32"), tp_mode="heads")
+    with torch.inference_mode():
+        tok = {"fp32": control.net.backbone(x)["patch_tokens"].float()}
+    del control
+    models = {}
+    for tp_mode in ("heads", "ring"):
+        models[tp_mode] = build_model(device="cuda", seed=0, cfg=cfg, tp_mode=tp_mode)
+        cast_backbone_bf16(models[tp_mode].net)
+        with torch.inference_mode():
+            tok[tp_mode] = models[tp_mode].net.backbone(x)["patch_tokens"].float()
+    rel = lambda a, b: ((tok[a] - tok[b]).norm() / tok[b].norm()).item()  # noqa: E731
+    errs = {"ring vs heads": rel("ring", "heads"), "ring vs fp32": rel("ring", "fp32"),
+            "heads vs fp32": rel("heads", "fp32")}
+    ok = (max(errs.values()) <= STREAM_TOL
+          and errs["ring vs fp32"] <= STREAM_RATIO * errs["heads vs fp32"])
+    log(13, f"896_L bf16 patch tokens (LayerScale {LAYERSCALE:g}), rel L2 err "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tol {STREAM_TOL:g}, and ring vs fp32 <= {STREAM_RATIO:g} x heads vs fp32); "
+            f"max abs err ring vs heads "
+            f"{(tok['ring'] - tok['heads']).abs().max().item():.3e}, |fp32 tokens| max "
+            f"{tok['fp32'].abs().max().item():.3e} {'ok' if ok else 'FAIL'}")
+    del tok
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    for i, (h, w) in enumerate([(480, 640), (800, 450), (896, 896)]):
+        before = dict(cuda_lib.LAUNCHES)
+        out = demo.predict(models["ring"], synthetic_image(i, h, w))
+        counts = tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names)
+        finite = bool(torch.isfinite(out["v3d"]).all())
+        ok_i = counts == (0, 0, 24) and finite and tuple(out["v3d"].shape) == (1, 16, 10475, 3)
+        log(13, f"896_L bf16 ring image {i} {w}x{h}: v3d {tuple(out['v3d'].shape)} finite={finite}, "
+                f"launches K1/K2/K5 {counts} {'ok' if ok_i else 'FAIL'}")
+        ok = ok and ok_i
+    if not ok:
+        raise AssertionError("896_L standard-stream check failed")
+    times = {"heads": [], "ring": []}
+    with torch.inference_mode():
+        for tp_mode in ("heads", "ring", "ring", "heads"):
+            times[tp_mode].append(cuda_ms(lambda: models[tp_mode].forward(x, K), iters=5))
+    fwd = {tp: float(np.mean(t)) for tp, t in times.items()}
+    log(13, "896_L bf16 forward, batch 1 (turns heads, ring, ring, heads): "
+            + ", ".join(f"{tp} {fwd[tp]:.3f} ms ({'/'.join(f'{t:.3f}' for t in times[tp])})"
+                        for tp in fwd) + f" [{card}]")
+    return fwd
+
+
+def write_datasets(root, seed=0):
+    """Seeded BEDLAM (training: 4 images, validation: 2; 3 people each) and
+    EHF (2 images) trees in their on-disk layouts, with real-sized images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n_img in (("training", 4), ("validation", 2)):
+        img_dir = root / "data" / "BEDLAM" / split / "seq0" / "png"
+        npz_dir = root / "data" / "BEDLAM" / f"all_npz_12_{split}"
+        img_dir.mkdir(parents=True)
+        npz_dir.mkdir(parents=True)
+        n_person = 3
+        rows = n_img * n_person
+        transl = np.stack([rng.uniform(-1.5, 1.5, rows), rng.uniform(-0.5, 0.5, rows),
+                           rng.uniform(3, 8, rows)], -1)
+        np.savez(npz_dir / "seq0.npz",
+                 pose_cam=rng.normal(scale=0.2, size=(rows, 165)).astype(np.float32),
+                 cam_int=np.tile(np.array([[1400.0, 0, 640], [0, 1400, 360], [0, 0, 1]]),
+                                 (rows, 1, 1)),
+                 cam_ext=np.tile(np.eye(4), (rows, 1, 1)),
+                 shape=rng.normal(size=(rows, 11)).astype(np.float32),
+                 imgname=np.array([f"im{i}.png" for i in range(n_img) for _ in range(n_person)]),
+                 trans_cam=transl.astype(np.float32))
+        for i in range(n_img):
+            Image.fromarray(synthetic_image(200 + i, 720, 1280)).save(img_dir / f"im{i}.png")
+    ehf = root / "data" / "EHF"
+    ehf.mkdir(parents=True)
+    verts = rng.normal(scale=0.3, size=(10475, 3))  # SMPL-X vertex count
+    for i in range(2):
+        write_ply(ehf / f"{i:02d}_align.ply", verts)
+        Image.fromarray(synthetic_image(300 + i, 1200, 1600)).save(ehf / f"{i:02d}_img.png")
+
+
+def write_ply(path, verts):
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\nend_header\n").encode()
+    path.write_bytes(header + np.asarray(verts, "<f4").tobytes())
+
+
+def self_consistent_ehf(ckpt, tp_mode):
+    """Rewrite the EHF tree's GT meshes as the checkpoint's own first
+    person on each image (through the EHF camera, back into its world
+    frame): evaluating that checkpoint must then match every GT person."""
+    from pathlib import Path
+
+    from multihmr_tpu_torch.config import ModelConfig
+    from multihmr_tpu_torch.data import ehf as ehf_mod
+    from multihmr_tpu_torch.factory import build_model
+    from multihmr_tpu_torch.io.checkpoint import load_checkpoint
+
+    cfg = ModelConfig(backbone="dinov2_vitl14", img_size=896, max_people=8)  # the CLI's
+    model = build_model(device="cuda", cfg=cfg, tp_mode=tp_mode)
+    model.net.load_state_dict(load_checkpoint(ckpt)[0])
+    R = ehf_mod._rotvec_to_rotmat_np(ehf_mod.EHF_CAM_ROTVEC)
+    ds = ehf_mod.EHF(img_size=896)
+    for i in range(len(ds)):
+        x, annot = ds[i]
+        with torch.inference_mode():
+            out = model.forward(torch.from_numpy(x[None]).cuda(),
+                                torch.from_numpy(annot["K"][None]).cuda(), det_thresh=0.2)
+        v_cam = model.extract_persons(out, fields=["v3d"])[0][0]["v3d"].astype(np.float64)
+        write_ply(Path("data/EHF") / annot["imagename"].replace("img.png", "align.ply"),
+                  (v_cam - ehf_mod.EHF_CAM_T) @ R)  # inverse of v @ R.T + T
+    os.remove(os.path.join("data", "ehf_test.pkl"))  # the dataset rebuilds its annotations
+
+
+def run_cli(cuda_lib, attention, norm):
+    """The training CLI at full width and depth: a ring run (4 steps, eval
+    of 2 BEDLAM + 2 EHF images) and a heads run (2 steps, eval of 1 EHF
+    image), each counted from 0 just before it, and between them an
+    ``--eval_only --pretrained`` run of the ring checkpoint on EHF GT made
+    from its own predictions. Returns the ring training run's launches."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from multihmr_tpu_torch.cli import train as train_cli
+    from multihmr_tpu_torch.train import trainer as trainer_mod
+
+    names = (attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL, attention.KERNEL_STD)
+    per_step, losses = [], []
+    make = trainer_mod.make_train_step
+
+    def counting_make(*args, **kwargs):  # Trainer builds its step through this
+        step = make(*args, **kwargs)
+
+        def counted(batch, epoch):
+            before = dict(cuda_lib.LAUNCHES)
+            terms = step(batch, epoch)
+            per_step.append(tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names))
+            losses.append((float(terms["total"]), float(terms["finite"])))
+            return terms
+        return counted
+
+    def cli(argv):
+        per_step.clear()
+        losses.clear()
+        buf = io.StringIO()
+        cuda_lib.reset_launches()  # this run starts here
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(argv)
+        finally:
+            for line in buf.getvalue().splitlines():
+                log(14, "  " + line)
+        launches = {k: cuda_lib.LAUNCHES[k] for k in names}  # read just after it
+        policy = next(ln for ln in buf.getvalue().splitlines() if ln.startswith("remat auto"))
+        policy = "none" if policy.endswith("no remat") else policy.rsplit("remat=", 1)[1]
+        return launches, policy, time.perf_counter() - t0
+
+    def eval_metrics(name):
+        recs = [json.loads(ln) for ln in open(os.path.join("logs", name, "metrics.jsonl"))]
+        return {r["tag"]: r["value"] for r in recs}
+
+    common = ["--backbone", "dinov2_vitl14", "--img_size", "896", "--n_devices", "1",
+              "--batch_size", "2", "--max_people", "8", "--n_epoch", "1", "--nb_max_ckpt", "1"]
+    cwd = os.getcwd()
+    trainer_mod.make_train_step = counting_make
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            write_datasets(Path(tmp))
+            argv = common + ["--tp_mode", "ring", "--iter_per_epoch", "4", "--valset", "bedlam",
+                             "ehf", "--val_n", "2", "2", "--name", "ring"]
+            log(14, "cli.train " + " ".join(argv))
+            launches, policy, secs = cli(argv)
+            want = STEP_LAUNCHES["ring"][policy]
+            in_steps = [sum(c[i] for c in per_step) for i in range(len(names))]
+            in_eval = [launches[k] - n for k, n in zip(names, in_steps)]
+            metrics = eval_metrics("ring")
+            pves = {v: metrics.get(f"{v}/pve") for v in ("bedlam-validation-1", "ehf-test-1")}
+            ok = (len(per_step) == 4 and all(c == want for c in per_step)
+                  and all(np.isfinite(t) and f == 1.0 for t, f in losses)
+                  and in_eval == [0, 0, 0, 24 * 4]
+                  and os.path.isfile(os.path.join("ckpts", "ring", "ckpt_000000.pt"))
+                  and all(p is not None and np.isfinite(p) for p in pves.values()))
+            log(14, f"ring CLI run ({secs:.1f} s): remat auto chose {policy}; losses "
+                    + ", ".join(f"{t:.3f}" for t, _ in losses)
+                    + f"; launches per step K1/K3/K2/K5 {per_step} (want {want}); in the eval "
+                    f"of 4 images K1/K3/K2/K5 {in_eval} (want 0/0/0/96); checkpoint "
+                    f"{os.listdir(os.path.join('ckpts', 'ring'))}; pve {pves} "
+                    f"{'ok' if ok else 'FAIL'}")
+            ring_launches = launches
+            # --eval_only --pretrained on the checkpoint just written, with
+            # the EHF GT made from its own predictions: recall 100, PA-PVE ~0
+            self_consistent_ehf(os.path.join("ckpts", "ring", "ckpt_000000.pt"), "ring")
+            argv = common + ["--tp_mode", "ring", "--eval_only", "1", "--pretrained",
+                             os.path.join("ckpts", "ring", "ckpt_000000.pt"), "--valset", "ehf",
+                             "--name", "ring_self"]
+            log(14, "cli.train " + " ".join(argv))
+            launches, _, secs = cli(argv)
+            metrics = eval_metrics("ring_self")
+            ok_s = (launches[attention.KERNEL_STD] == 48 and metrics["ehf-test-1/recall"] == 100.0
+                    and metrics["ehf-test-1/pa_pve"] < 1.0 and np.isfinite(metrics["ehf-test-1/pve"]))
+            log(14, f"ring CLI eval of its own checkpoint on self-consistent EHF GT ({secs:.1f} s): "
+                    + ", ".join(f"{k.split('/')[1]} {v:.4g}" for k, v in metrics.items())
+                    + f"; K5 launches {launches[attention.KERNEL_STD]} (want 48) "
+                    f"{'ok' if ok_s else 'FAIL'}")
+            argv = common + ["--tp_mode", "heads", "--iter_per_epoch", "2", "--valset", "ehf",
+                             "--val_n", "1", "--name", "heads"]
+            log(14, "cli.train " + " ".join(argv))
+            launches, policy, secs = cli(argv)
+            want = STEP_LAUNCHES["heads"][policy]
+            ok_h = (len(per_step) == 2 and all(c == want for c in per_step)
+                    and all(np.isfinite(t) and f == 1.0 for t, f in losses))
+            log(14, f"heads CLI run ({secs:.1f} s): remat auto chose {policy}; losses "
+                    + ", ".join(f"{t:.3f}" for t, _ in losses)
+                    + f"; launches per step K1/K3/K2/K5 {per_step} (want {want}); whole run "
+                    f"{launches} {'ok' if ok_h else 'FAIL'}")
+    finally:
+        os.chdir(cwd)
+        trainer_mod.make_train_step = make
+    if not (ok and ok_s and ok_h):
+        raise AssertionError("training CLI check failed")
+    return ring_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -521,7 +1013,7 @@ def main() -> int:
 
     k1_err = phase(3, check_k1, attention)
     k2_err = phase(4, check_k2, norm)
-    phase(5, check_e2e, build_model, named_config, demo)
+    phase(5, check_e2e, build_model, named_config, demo, cuda_lib, attention, norm)
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "chip_smoke")
     res = phase(6, run_896, build_model, demo, cast_backbone_bf16, cuda_lib, attention,
                 norm, out_dir)
@@ -532,16 +1024,29 @@ def main() -> int:
     phase(9, check_train_e2e, cuda_lib, attention, norm)
     train = phase(10, run_train_896, cuda_lib, attention, norm)
     bwd = phase(11, time_bwd, attention, card)
-    if failed or None in (fwd, bwd_check, train, bwd):
+    k5_err = phase(12, check_k5, attention)
+    k5_mutants = phase(12, check_k5_mutants, attention, cuda_lib)
+    k5_times = phase(12, time_k5, attention, card)
+    phase(13, check_e2e, build_model, named_config, demo, cuda_lib, attention, norm, 13, "ring")
+    phase(13, check_train_e2e, cuda_lib, attention, norm, 13, "ring")
+    fwd_streams = phase(13, check_streams_896, build_model, named_config, demo,
+                        cast_backbone_bf16, cuda_lib, attention, norm, card)
+    torch.cuda.empty_cache()
+    cli_launches = phase(14, run_cli, cuda_lib, attention, norm)
+    if failed or None in (fwd, bwd_check, train, bwd, k5_err, k5_mutants, k5_times, fwd_streams,
+                          cli_launches):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
     bwd_err, two_pass = bwd_check
     launches.update(two_pass)  # K4a/K4b: the two-pass path of phase 8
+    launches[attention.KERNEL_STD] = cli_launches[attention.KERNEL_STD]  # K5: phase 14's ring run
     for label, (ms, peak) in steps.items():
-        log(11, f"896_L bf16 train step, batch 2, {label}: {ms:.1f} ms, peak memory "
-                f"{peak:.2f} GiB [{card}]")
-    log(11, f"896_L bf16 forward, batch 1: {fwd['fwd_ms']:.3f} ms [{card}]")
+        log("end", f"896_L bf16 train step, batch 2, {label}: {ms:.1f} ms, peak memory "
+                   f"{peak:.2f} GiB [{card}]")
+    log("end", f"896_L bf16 forward, batch 1: heads {fwd['fwd_ms']:.3f} ms (phase 7); "
+               f"heads {fwd_streams['heads']:.3f} ms, ring {fwd_streams['ring']:.3f} ms "
+               f"(phase 13) [{card}]")
 
     def entry(name, source, replaces, err, times):
         ms, plain_ms, library_ms, b_ms, b_by = times
@@ -560,6 +1065,7 @@ def main() -> int:
               bwd[attention.KERNEL_BWD_DQ]),
         entry(attention.KERNEL_BWD_DKV, "flash_bwd.cu", "attention.py:682", bwd_err["K4b"],
               bwd[attention.KERNEL_BWD_DKV]),
+        entry(attention.KERNEL_STD, "flash_fwd_std.cu", "attention.py:49", k5_err, k5_times),
     ]
     if any(kern["launches"] == 0 for kern in kernels):
         log("end", "a kernel was never launched by the path that runs it")

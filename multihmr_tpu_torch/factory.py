@@ -26,25 +26,39 @@ SMPLX_NAMES = (
 )
 
 
-def load_body_model(device, num_betas: int = 10) -> BodyModel:
-    """The SMPL-X neutral asset if present, else the synthetic stand-in."""
-    d = os.environ.get("SMPLX_DIR", "models")
+def smplx_dir() -> str:
+    return os.environ.get("SMPLX_DIR", "models")
+
+
+def smplx_asset() -> Optional[str]:
+    """Path of the licensed SMPL-X neutral npz, or None when it is absent."""
+    d = smplx_dir()
     for cand in (os.path.join(d, "smplx", "SMPLX_NEUTRAL.npz"),
                  os.path.join(d, "SMPLX_NEUTRAL.npz")):
         if os.path.exists(cand):
-            return BodyModel.from_arrays(load_smplx_npz(cand, num_betas=num_betas), device)
+            return cand
+    return None
+
+
+def load_body_model(device, num_betas: int = 10) -> BodyModel:
+    """The SMPL-X neutral asset if present, else the synthetic stand-in."""
+    path = smplx_asset()
+    if path is not None:
+        return BodyModel.from_arrays(load_smplx_npz(path, num_betas=num_betas), device)
     return BodyModel.from_arrays(smplx_like_synthetic(num_betas), device)
 
 
 def build_model(name: str = "multiHMR_896_L", device="cuda", seed: int = 0,
-                cfg: Optional[ModelConfig] = None) -> MultiHMR:
+                cfg: Optional[ModelConfig] = None, tp_mode: str = "heads") -> MultiHMR:
     """MultiHMR for a named SMPL-X configuration, with seeded random weights,
-    on ``device``. ``cfg`` overrides the named configuration."""
+    on ``device``. ``cfg`` overrides the named configuration; ``tp_mode``
+    "ring" runs the ViT's standard stream (K5), "heads" the channels-major
+    one (K1, K2)."""
     if cfg is None:
         if name not in SMPLX_NAMES:
             raise KeyError(f"{name!r} is not a ported configuration; known: {SMPLX_NAMES}")
         cfg = named_config(name)
     device = torch.device(device)
-    net = MultiHMRNet(cfg).init_weights(torch.Generator().manual_seed(seed))
+    net = MultiHMRNet(cfg, tp_mode=tp_mode).init_weights(torch.Generator().manual_seed(seed))
     bm = load_body_model(device, cfg.num_betas)
     return MultiHMR(cfg, bm, net=net.to(device).eval())

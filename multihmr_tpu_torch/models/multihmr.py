@@ -65,13 +65,14 @@ class RegressionMLP(nn.Module):
 class MultiHMRNet(nn.Module):
     """Backbone + detection + HPH: everything but the body model."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tp_mode: str = "heads"):
         super().__init__()
         self.cfg = cfg
         d = cfg.vit.embed_dim
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.backbone = DINOv2ViT(cfg.vit, cfg.grid_size, self.compute_dtype,
-                                  remat_policy=cfg.remat_policy if cfg.remat else None)
+                                  remat_policy=cfg.remat_policy if cfg.remat else None,
+                                  tp_mode=tp_mode)
         self.mlp_classif = RegressionMLP(d, d, 1)
         self.mlp_offset = RegressionMLP(d, d, 2)
         self.x_attention_head = HPH(cfg)
@@ -156,13 +157,16 @@ class MultiHMRNet(nn.Module):
 
 class MultiHMR:
     """Network + body model. ``forward`` returns ``[B, K, ...]`` slots with
-    ``out['det'].valid`` the person mask."""
+    ``out['det'].valid`` the person mask. ``tp_mode`` picks the ViT's stream
+    for a net built here: "heads" the channels-major one, "ring" the
+    standard one (one device: no mesh)."""
 
     def __init__(self, cfg: ModelConfig, body_model: BodyModel,
-                 net: Optional[MultiHMRNet] = None, person_center_joint_names=None):
+                 net: Optional[MultiHMRNet] = None, person_center_joint_names=None,
+                 tp_mode: str = "heads"):
         self.cfg = cfg
         self.body_model = body_model
-        self.net = net if net is not None else MultiHMRNet(cfg)
+        self.net = net if net is not None else MultiHMRNet(cfg, tp_mode=tp_mode)
         self.smpl_layer = SMPLXCameraLayer(
             body_model, person_center=cfg.person_center, joint_names=person_center_joint_names)
 
@@ -185,9 +189,10 @@ class MultiHMR:
         out.update({k: v.reshape((B, Kcap) + v.shape[1:]) for k, v in smpl_out.items()})
         return out
 
-    def extract_persons(self, out: dict) -> list:
+    def extract_persons(self, out: dict, fields: Optional[list] = None) -> list:
         """Padded ``[B, K]`` outputs → per-image lists of person dicts of numpy
-        arrays."""
+        arrays. ``fields`` restricts which keys are read back to the host
+        (default: all)."""
         valid = out["det"].valid.cpu().numpy()
         B = valid.shape[0]
         full = valid.sum(-1) == valid.shape[1]
@@ -201,6 +206,8 @@ class MultiHMR:
             ("expression", "expression"), ("shape", "shape"),
             ("v3d", "v3d"), ("j3d", "j3d"), ("j2d", "j2d"),
         ]
+        if fields is not None:
+            keys = [(name, src) for name, src in keys if name in fields]
         # valid slots are a prefix of K: read back only [:, :kmax]
         kmax = int(valid.sum(-1).max())
         if kmax == 0:

@@ -1,11 +1,26 @@
-"""DINOv2-geometry ViT on the channels-major stream (``multihmr_tpu/models/vit.py``).
+"""DINOv2-geometry ViT (``multihmr_tpu/models/vit.py``), on either of the JAX
+package's two residual streams, picked by ``tp_mode`` alone: the JAX rule
+``transposed = transposed_stream and tp_mode != "ring"`` with its
+``transposed_stream`` at its default (True), which nothing in either package
+changes outside tests.
 
-The residual stream runs as ``[B, D, N]`` through the blocks, as the JAX
-package's ``TBlock`` stream does: the qkv projection then yields q, k and v
-as ``[B, H, Dh, N]`` views with no copy, which is the operand layout of the
-flash kernel (ops/attention.py), and the block LayerNorms reduce over the
-channel dim (ops/norm.py). Both kernels run once per block (attention) and
-twice per block (LayerNorm). Dense layers are plain ``torch.baddbmm``.
+  * channels-major (``TBlock``, the default): the stream runs as
+    ``[B, D, N]`` through the blocks. The qkv projection then yields q, k
+    and v as ``[B, H, Dh, N]`` views with no copy, the operand layout of the
+    flash kernel K1 (ops/attention.py), and the block LayerNorms reduce over
+    the channel dim with K2 (ops/norm.py): K1 once and K2 twice per block.
+    Dense layers are plain ``torch.baddbmm``.
+  * standard (``Block``, ``tp_mode="ring"``): the stream runs as
+    ``[B, N, D]``. The qkv projection is reshaped to a packed
+    ``[B, N, 3, H, Dh]`` whose slices are K5's operands, K5 writes the
+    heads-merged ``[B, N, D]`` the output projection reads, and the block
+    LayerNorms are plain fp32 ``F.layer_norm`` followed by a cast, as the
+    JAX ``Block`` has them: K5 once per block, no K1 and no K2. Dense layers
+    are ``F.linear``. ``tp_mode`` only picks the stream here: there is no
+    mesh, so "ring" runs no ring.
+
+Both streams have the same parameter names (those of the reference
+checkpoints) and draw the same seeded init in the same order.
 
 Precision follows the JAX package: matmuls and the stream in
 ``dtype`` (bf16 by default), LayerNorm statistics in fp32, GELU exact (erf)
@@ -13,9 +28,10 @@ in fp32 and tanh-approximate in bf16, and an fp32 final LayerNorm.
 The JAX stream pre-pad is a TPU tiling choice and is left out; the kernel
 masks its ragged tail itself.
 
-Training: the attention backward is K3 and the LayerNorm backward analytic
-torch ops. ``remat_policy`` "block" recomputes each whole block in the backward
-pass (K1 and K2 run twice per block and step), "mlp" only the block's MLP
+Training: the attention backward is K3 (the standard stream copies into its
+channels-major layout) and the LayerNorm backward analytic torch ops.
+``remat_policy`` "block" recomputes each whole block in the backward pass (the
+forward kernels run twice per block and step), "mlp" only the block's MLP
 (``torch.utils.checkpoint``, non-reentrant), as ``models/vit.py:290-312`` of
 the JAX package.
 """
@@ -30,7 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from multihmr_tpu_torch.config import ViTConfig
-from multihmr_tpu_torch.ops.attention import flash_attention_qkv_t
+from multihmr_tpu_torch.ops.attention import attention_qkv, flash_attention_qkv_t
 from multihmr_tpu_torch.ops.norm import layernorm_cm
 
 
@@ -56,10 +72,6 @@ class TLinear(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(fan_out, fan_in))
         self.bias = nn.Parameter(torch.empty(fan_out))
-
-    def init_weights(self, generator):
-        lecun_normal_(self.weight, generator)
-        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         # baddbmm writes [B, out, N] directly; torch.matmul(w, x) would fold
@@ -138,6 +150,78 @@ class TBlock(nn.Module):
         return _maybe_checkpoint(self.mlp, y) if self.remat_mlp else self.mlp(y)
 
 
+# ---------------------------------------------------------------------------
+# Standard stream: [B, N, D]
+
+
+def _dense(layer: nn.Linear, x):
+    dt = x.dtype
+    return F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
+
+
+def _layer_norm(norm: nn.LayerNorm, x):
+    """fp32 statistics and affine, cast back to x's dtype (the JAX ``Block``'s
+    ``nn.LayerNorm(dtype=float32)`` then ``astype``)."""
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                     norm.bias.float(), norm.eps)
+    return y.to(x.dtype)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), init))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):  # [B, N, D]
+        B, N, D = x.shape
+        h = self.num_heads
+        qkv = _dense(self.qkv, x).reshape(B, N, 3, h, D // h)  # a view
+        return _dense(self.proj, attention_qkv(qkv))  # [B, N, D] heads-merged
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return _dense(self.fc2, _gelu(_dense(self.fc1, x)))
+
+
+class Block(nn.Module):
+    """Standard-stream twin of :class:`TBlock`: the same parameter names."""
+
+    def __init__(self, cfg: ViTConfig, remat_mlp: bool = False):
+        super().__init__()
+        self.remat_mlp = remat_mlp
+        d = cfg.embed_dim
+        self.norm1 = nn.LayerNorm(d, eps=1e-6)
+        self.attn = Attention(d, cfg.num_heads)
+        self.ls1 = LayerScale(d, cfg.layerscale_init)
+        self.norm2 = nn.LayerNorm(d, eps=1e-6)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+        self.ls2 = LayerScale(d, cfg.layerscale_init)
+
+    def forward(self, x):
+        x = x + self.ls1(self.attn(_layer_norm(self.norm1, x)))
+        return x + self.ls2(self._mlp(_layer_norm(self.norm2, x)))
+
+    def _mlp(self, y):
+        return _maybe_checkpoint(self.mlp, y) if self.remat_mlp else self.mlp(y)
+
+
 def _maybe_checkpoint(fn, x):
     """``fn(x)``, its activations recomputed in the backward pass when a
     graph is being recorded."""
@@ -149,14 +233,18 @@ def _maybe_checkpoint(fn, x):
 class DINOv2ViT(nn.Module):
     """NHWC normalized image ``[B, S, S, 3]`` → final-norm ``patch_tokens
     [B, N, D]`` and ``cls_token [B, D]`` in ``dtype``. ``pos_embed`` is stored
-    already resampled to the working grid."""
+    already resampled to the working grid. The blocks run the channels-major
+    stream with ``tp_mode`` "heads", the standard one with "ring"."""
 
     def __init__(self, cfg: ViTConfig, grid_size: int, dtype=torch.bfloat16,
-                 remat_policy: str | None = None):
+                 remat_policy: str | None = None, tp_mode: str = "heads"):
         super().__init__()
         if remat_policy not in (None, "block", "mlp"):
             raise ValueError(f"unknown remat_policy {remat_policy!r} "
                              "(expected 'block' or 'mlp')")
+        if tp_mode not in ("heads", "ring"):
+            raise ValueError(f"unknown tp_mode {tp_mode!r} (expected 'heads' or 'ring')")
+        self.transposed = tp_mode != "ring"
         self.cfg = cfg
         self.grid_size = grid_size
         self.dtype = dtype
@@ -165,7 +253,8 @@ class DINOv2ViT(nn.Module):
         self.patch_embed = nn.Linear(p * p * 3, d)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + grid_size * grid_size, d))
-        self.blocks = nn.ModuleList(TBlock(cfg, remat_mlp=remat_policy == "mlp")
+        block_cls = TBlock if self.transposed else Block
+        self.blocks = nn.ModuleList(block_cls(cfg, remat_mlp=remat_policy == "mlp")
                                     for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=1e-6)
 
@@ -178,8 +267,9 @@ class DINOv2ViT(nn.Module):
             for t in (self.cls_token, self.pos_embed):
                 t.copy_(torch.randn(t.shape, generator=generator) * 0.02)
         for m in self.blocks.modules():
-            if isinstance(m, TLinear):
-                m.init_weights(generator)
+            if isinstance(m, (TLinear, nn.Linear)):
+                lecun_normal_(m.weight, generator)
+                nn.init.zeros_(m.bias)
 
     def forward(self, x):
         B, H, W, _ = x.shape
@@ -198,10 +288,12 @@ class DINOv2ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, 1, -1)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dt)
 
-        tokens = tokens.transpose(1, 2).contiguous()  # [B, D, 1+N] channels-major
+        if self.transposed:
+            tokens = tokens.transpose(1, 2).contiguous()  # [B, D, 1+N] channels-major
         for blk in self.blocks:
             tokens = _maybe_checkpoint(blk, tokens) if self.remat_block else blk(tokens)
-        tokens = tokens.transpose(1, 2)  # [B, 1+N, D]
+        if self.transposed:
+            tokens = tokens.transpose(1, 2)  # [B, 1+N, D]
 
         tokens = F.layer_norm(tokens.float(), (tokens.shape[-1],),
                               self.norm.weight.float(), self.norm.bias.float(), 1e-6)

@@ -1,13 +1,30 @@
-"""Channels-major attention: the CUDA flash kernels K1, K3, K4a, K4b and their
-plain versions.
+"""Attention: the CUDA flash kernels K1, K3, K4a, K4b, K5 and their plain
+versions.
 
-Counterpart of the transposed-stream entries of ``multihmr_tpu/ops/attention.py``
-(``_flash_fwd_impl_t``, ``_flash_bwd_impl_t``, ``mha_reference_t``,
-``flash_attention_t``). q, k and v are ``[B, H, Dh, N]``, the layout the ViT's
-qkv projection produces for free. On a CUDA tensor the forward launches
-``csrc/flash_fwd.cu`` (K1) and the backward ``csrc/flash_bwd.cu`` (K3 fused,
-or K4a + K4b two-pass); on a CPU tensor each runs its plain version. There
-is no fallback: a CUDA tensor a kernel does not take raises.
+Counterpart of ``multihmr_tpu/ops/attention.py``, in two layouts:
+
+  * channels-major (``_flash_fwd_impl_t``, ``_flash_bwd_impl_t``,
+    ``mha_reference_t``, ``flash_attention_t``): q, k and v are
+    ``[B, H, Dh, N]``, the layout the channels-major ViT's qkv projection
+    produces for free. The forward launches ``csrc/flash_fwd.cu`` (K1), the
+    backward ``csrc/flash_bwd.cu`` (K3 fused, or K4a + K4b two-pass);
+  * standard (``mha_reference``, ``flash_fwd_reference``, ``_flash_fwd_std``,
+    ``flash_attention_qkv``, ``attention_qkv``): q, k and v are
+    ``[B, H, N, Dh]``, views of the packed ``[B, N, 3, H, Dh]`` projection of
+    the standard ``[B, N, D]`` stream. The forward launches
+    ``csrc/flash_fwd_std.cu`` (K5); the backward copies into K3's layout, as
+    the JAX package's ``_flash_bwd_impl`` does. ``attention_qkv`` is the one
+    entry the standard-stream ViT calls; the JAX package's per-tensor entries
+    (``flash_attention``, ``flash_attention_trainable``,
+    ``flash_attention_merged``, ``multi_head_attention``,
+    ``attention_merged``) have no caller in the port and are not ported.
+
+On a CUDA tensor each entry launches its kernel; on a CPU tensor it runs the
+plain version. There is no fallback: a CUDA tensor a kernel does not take
+raises. The JAX standard entries' TPU tiling arguments (``block_q``,
+``block_kv``, ``pad_to``, ``interpret``) and the ``N >= 1024`` flash
+threshold of its dispatchers are TPU tuning and are not ported: on CUDA
+``attention_qkv`` takes K5 at every N.
 """
 
 from __future__ import annotations
@@ -20,6 +37,7 @@ KERNEL = "flash_fwd_t"            # K1
 KERNEL_BWD = "flash_bwd_fused_t"  # K3
 KERNEL_BWD_DQ = "flash_bwd_dq_t"  # K4a
 KERNEL_BWD_DKV = "flash_bwd_dkv_t"  # K4b
+KERNEL_STD = "flash_fwd_std"      # K5
 HEAD_DIM = 64  # the kernels specialise on Dh = 64 (all six SMPL-X configs)
 _BWD_MODES = {KERNEL_BWD: 0, KERNEL_BWD_DQ: 1, KERNEL_BWD_DKV: 2}
 
@@ -241,3 +259,129 @@ def flash_attention_t(q, k, v, scale=None, kv_len=None):
     and out (``flash_attention_t`` of the JAX package). Packs q, k and v
     (one copy) and calls :func:`flash_attention_qkv_t`."""
     return flash_attention_qkv_t(torch.stack((q, k, v), 1), scale, kv_len)
+
+
+# ---------------------------------------------------------------------------
+# Standard layout: q, k and v are [B, H, N, Dh]
+
+
+def mha_reference(q, k, v, scale=None):
+    """Plain attention, ``[B, H, N, Dh]`` in and out (the JAX package's
+    ``mha_reference``): scores in q's dtype, the softmax in fp32, the
+    probabilities cast to v's dtype before P.V."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bhmd->bhnd", probs, v)
+
+
+def flash_fwd_reference(q, k, v, scale=None):
+    """K5's plain version: ``[B, H, N, Dh]`` in → (out ``[B, H, N, Dh]`` in
+    q's dtype, natural-log lse ``[B, H, N]``), computed in fp32 (fp64 for
+    fp64 inputs)."""
+    out_t, lse = mha_reference_t(*(t.transpose(-1, -2) for t in (q, k, v)), scale)
+    return out_t.transpose(-1, -2), lse
+
+
+def _check_std(q, k, v, out, what):
+    if q.dim() != 4:
+        raise ValueError(f"{what} expects [B, H, N, Dh], got {tuple(q.shape)}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{what}: kernel takes Dh={HEAD_DIM}, got {q.shape[-1]}")
+    for name, t in (("k", k), ("v", v), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{what}: {name} differs from q in shape, dtype or device")
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError(f"{what}: q, k and v must share their strides")
+    if q.dtype not in cuda_lib.DTYPE_CODES:
+        raise ValueError(f"{what}: unsupported dtype {q.dtype}")
+    vec = 16 // q.element_size()  # elements per 16-byte load
+    if (q.stride(-1) != 1 or any(s % vec for s in q.stride()[:3])
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError(f"{what}: K5 loads 16-byte token rows: the channel stride must be 1 "
+                         f"and the other strides and base pointers 16-byte aligned; got "
+                         f"strides {q.stride()}")
+
+
+def _flash_fwd_std(q, k, v, scale=None, out=None):
+    """``[B, H, N, Dh]`` in → (out ``[B, H, N, Dh]``, lse ``[B, H, N]`` fp32).
+
+    CPU tensor: :func:`flash_fwd_reference`. CUDA tensor: kernel K5, or
+    raise. ``out``: an optional ``[B, H, N, Dh]`` view to write, with any
+    strides; by default a view of a fresh ``[B, N, H, Dh]`` buffer, so that
+    merging the heads into ``[B, N, H * Dh]`` is a free reshape."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not _dispatch(q, "_flash_fwd_std"):
+        o, lse = flash_fwd_reference(q, k, v, scale)
+        return (o, lse) if out is None else (out.copy_(o), lse)
+    B, H, N, Dh = q.shape
+    if out is None:
+        out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    _check_std(q, k, v, out, "_flash_fwd_std")
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    err = cuda_lib.library().mhmr_flash_fwd_std(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, H, Dh, N, *q.stride(), *out.stride(), float(scale),
+        cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_handle(q.device),
+    )
+    cuda_lib.check(err, KERNEL_STD)
+    cuda_lib.LAUNCHES[KERNEL_STD] += 1
+    return out, lse
+
+
+def _merge_heads(out):
+    """``[B, H, N, Dh]`` → ``[B, N, H * Dh]`` (free for K5's default output)."""
+    B, H, N, Dh = out.shape
+    return out.transpose(1, 2).reshape(B, N, H * Dh)
+
+
+def _unpack(qkv):
+    """Packed ``[B, N, 3, H, Dh]`` → q, k, v ``[B, H, N, Dh]`` views."""
+    return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    """Packed qkv ``[B, N, 3, H, Dh]`` (the standard stream's projection) →
+    heads-merged out ``[B, N, H * Dh]``. The backward (as the JAX
+    ``_fam_bwd``) copies q, k, v, o and dO into contiguous channels-major
+    tensors for K3 and returns one packed ``[B, N, 3, H, Dh]`` gradient, so
+    autograd pays no zero-fill-and-copy per q/k/v slice."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        out, lse = _flash_fwd_std(*_unpack(qkv), scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return _merge_heads(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out, lse = ctx.saved_tensors
+        B, N, _, H, Dh = qkv.shape
+        qkv_t = qkv.permute(0, 2, 3, 4, 1).contiguous()  # [B, 3, H, Dh, N]
+        o_t = out.transpose(-1, -2).contiguous()
+        do_t = g.reshape(B, N, H, Dh).permute(0, 2, 3, 1).contiguous()
+        dqkv_t = torch.empty_like(qkv_t)
+        _flash_bwd_impl_t(*qkv_t.unbind(1), o_t, lse, do_t, ctx.scale, out=dqkv_t.unbind(1))
+        return dqkv_t.permute(0, 4, 1, 2, 3).contiguous(), None
+
+
+def flash_attention_qkv(qkv, scale=None):
+    """Differentiable attention on packed ``qkv [B, N, 3, H, Dh]`` →
+    ``[B, N, H * Dh]``: K5 forward and K3 backward on CUDA, the plain
+    versions on the CPU. With no graph being recorded it calls the forward
+    directly, without the autograd Function's host cost."""
+    if not torch.is_grad_enabled():
+        return _merge_heads(_flash_fwd_std(*_unpack(qkv), scale)[0])
+    return _FlashAttentionQKV.apply(qkv, scale)
+
+
+def attention_qkv(qkv, scale=None):
+    """The standard-stream ViT's attention: packed ``[B, N, 3, H, Dh]`` →
+    ``[B, N, H * Dh]``. CUDA: :func:`flash_attention_qkv`; CPU:
+    :func:`mha_reference`, the JAX package's path off the TPU."""
+    if _dispatch(qkv, "attention_qkv"):
+        return flash_attention_qkv(qkv, scale)
+    return _merge_heads(mha_reference(*_unpack(qkv), scale))

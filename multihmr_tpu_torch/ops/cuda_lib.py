@@ -118,6 +118,10 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, f, i, p,
     ]
     lib.mhmr_flash_fwd_t.restype = i
+    lib.mhmr_flash_fwd_std.argtypes = [
+        p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, f, i, p,
+    ]
+    lib.mhmr_flash_fwd_std.restype = i
     lib.mhmr_flash_bwd_t.argtypes = [
         p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
         ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, f, i, i, p,

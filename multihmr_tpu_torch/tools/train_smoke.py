@@ -1,7 +1,7 @@
 """Train-step smoke test of the port (``tools/train_smoke.py`` of the JAX package).
 
     python -m multihmr_tpu_torch.tools.train_smoke --model multiHMR_896_L --batch 2 --steps 5 \
-        [--remat_policy none|mlp|block] [--ops 15]
+        [--remat_policy none|mlp|block] [--tp_mode heads|ring] [--ops 15]
 
 Builds the named configuration with seeded random weights and the synthetic
 SMPL-X-sized body model (``max_people`` 8), makes the JAX tool's seeded
@@ -59,17 +59,18 @@ def train_config(model: str, remat_policy: str = "none", max_people: int = 8):
 
 def run(model: str = "multiHMR_896_L", batch: int = 2, steps: int = 5,
         remat_policy: str = "none", device: str = "cuda", lr: float = 5e-6,
-        ops: int = 0, log=print) -> dict:
+        ops: int = 0, log=print, tp_mode: str = "heads") -> dict:
     """Build, then ``steps`` train steps; returns the losses, the per-step
-    ms, and the peak device memory in GiB (None on the CPU)."""
+    ms, and the peak device memory in GiB (None on the CPU). ``tp_mode``
+    "ring" trains the ViT's standard stream, "heads" its channels-major one."""
     cfg = train_config(model, remat_policy)
-    mhmr = build_model(model, device=device, seed=0, cfg=cfg)
+    mhmr = build_model(model, device=device, seed=0, cfg=cfg, tp_mode=tp_mode)
     opt = torch.optim.Adam(mhmr.net.parameters(), lr=lr, eps=1e-8)
     step = make_train_step(mhmr, opt)
     b = to_device(synthetic_batch(batch, cfg.max_people, cfg.img_size), device)
     on_card = torch.device(device).type == "cuda"
     log(f"{model}: img={cfg.img_size} tokens={cfg.num_patches + 1} batch={batch} "
-        f"remat={remat_policy} params={sum(p.numel() for p in mhmr.net.parameters()) / 1e6:.1f}M")
+        f"remat={remat_policy} tp_mode={tp_mode} params={sum(p.numel() for p in mhmr.net.parameters()) / 1e6:.1f}M")
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     terms, ms = [], []
@@ -146,6 +147,9 @@ def main(argv=None) -> int:
     ap.add_argument("--remat_policy", default="none", choices=REMAT,
                     help="'none'; 'mlp': recompute only each block's MLP; 'block': "
                          "recompute whole blocks (the flash forward runs twice)")
+    ap.add_argument("--tp_mode", default="heads", choices=("heads", "ring"),
+                    help="'heads': the ViT's channels-major stream (K1, K2); 'ring': its "
+                         "standard stream (K5)")
     ap.add_argument("--ops", type=int, default=0, metavar="N",
                     help="profile two more steps and print the N kernels with the "
                          "most device time (card only)")
@@ -155,7 +159,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     res = run(args.model, args.batch, args.steps, args.remat_policy, args.device,
-              ops=args.ops)
+              ops=args.ops, tp_mode=args.tp_mode)
     if not all(np.isfinite(res["losses"])) or not res["finite"]:
         print("non-finite loss")
         return 1

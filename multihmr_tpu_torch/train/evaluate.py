@@ -1,0 +1,195 @@
+"""Evaluation harness (``multihmr_tpu/train/evaluate.py``), the analogue of
+reference train.py:336-482.
+
+Per image: forward the model, greedily match predicted people to GT in 2D,
+accumulate PVE and PA-PVE, plus precision/recall/F1 from the matching. The
+metric math is the JAX package's numpy, copied into ``train/metrics.py``.
+
+Not here yet: the 3DPW branch (``make_smpl_gt_forward``, the
+``smplx2smpl`` and ``J_regressor_h36m`` arguments and the MPJPE metrics,
+waiting for ``data/threedpw.py`` and ``load_smpl_pkl``) and the eval
+triptychs (``visu_to_save``, waiting for ``render/``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from multihmr_tpu_torch.bodymodel.core import BodyModel, lbs_forward
+from multihmr_tpu_torch.ops.camera import perspective_projection
+from multihmr_tpu_torch.ops.rotations import rotvec_to_rotmat
+from multihmr_tpu_torch.train.metrics import (
+    AverageMeter,
+    compute_prf1,
+    match_2d_greedy,
+    pa_pve,
+    pve as pve_fn,
+)
+
+
+def make_smplx_gt_forward(body_model: BodyModel, num_betas: int = 11):
+    """GT forward for datasets that store SMPL-X parameters (BEDLAM):
+    ``annot['humans']`` entries with ``smplx_*`` keys → numpy
+    ``{v3d [P, V, 3], j3d [P, J, 3], j2d [P, J, 2]}``, through the same
+    ``lbs_forward`` as training, on the body model's device. Eager torch
+    needs none of the JAX version's fixed-capacity padding."""
+    device = body_model.v_template.device
+
+    @torch.no_grad()
+    def gt_forward(annot):
+        humans = annot["humans"]
+        pose = np.stack([
+            np.concatenate([h["smplx_root_pose"], h["smplx_body_pose"], h["smplx_jaw_pose"],
+                            h["smplx_leye_pose"], h["smplx_reye_pose"],
+                            h["smplx_left_hand_pose"], h["smplx_right_hand_pose"]], 0)
+            for h in humans]).astype(np.float32)
+        shape = np.stack([h["smplx_shape"][:num_betas] for h in humans]).astype(np.float32)
+        transl = np.stack([h["smplx_transl"] for h in humans]).astype(np.float32)
+        as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        out = lbs_forward(body_model, rotvec_to_rotmat(as_t(pose)), as_t(shape))
+        v3d = out["vertices"] + as_t(transl)[:, None]
+        j3d = out["joints"] + as_t(transl)[:, None]
+        j2d = perspective_projection(j3d, as_t(np.asarray(annot["K"], np.float32))[None])
+        return {"v3d": v3d.cpu().numpy(), "j3d": j3d.cpu().numpy(), "j2d": j2d.cpu().numpy()}
+
+    return gt_forward
+
+
+def _project_np(j3d: np.ndarray, K: np.ndarray) -> np.ndarray:
+    """``perspective_projection`` in host numpy (K·(x/z), utils/camera.py:14-27)."""
+    y = j3d / j3d[..., -1:]
+    return np.einsum("ij,...kj->...ki", np.asarray(K, np.float64), y)[..., :2]
+
+
+def evaluate_dataset(
+    model,
+    dataset,
+    det_thresh: float = 0.3,
+    nms_kernel_size: int = 3,
+    gt_forward: Optional[Callable] = None,
+    max_images: Optional[int] = None,
+    log_every: int = 50,
+    log_fn=print,
+) -> Dict[str, float]:
+    """Run eval over a dataset yielding (image NHWC, annot dict) with the
+    model's own weights (a :class:`~multihmr_tpu_torch.models.multihmr.MultiHMR`
+    on its device).
+
+    ``gt_forward(annot) -> dict(v3d [P,V,3], j3d [P,J,3], j2d [P,J,2])``
+    supplies GT meshes for datasets that store parameters rather than
+    vertices; EHF-style datasets with ``smplx_vertices`` are handled
+    natively (GT joints regressed with the model's J_regressor, reference
+    train.py:72-74).
+
+    With a ``gt_forward`` (per-image host work to hide) the loop enqueues
+    image *i+1*'s forward on the card before image *i*'s result is read
+    back, so the card computes while the host matches and scores, as the JAX
+    package does; without one it is the reference's serial loop.
+    ``results['timings']`` attributes the wall clock: load / dispatch / wait
+    / readback / gt / match_metrics / visu (always 0 here) sum to about the
+    wall."""
+    device = next(model.net.parameters()).device
+    meters = {k: AverageMeter(k) for k in ["pve", "pa_pve"]}
+    count = miss = fp = 0
+    timings = {k: 0.0 for k in (
+        "load", "dispatch", "wait", "readback", "gt", "match_metrics", "visu")}
+    n = len(dataset) if max_images is None else min(len(dataset), max_images)
+
+    def dispatch(i):
+        t0 = time.perf_counter()
+        x, annot = dataset[i]
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            out = model.forward(
+                torch.from_numpy(np.asarray(x[None], np.float32)).to(device),
+                torch.from_numpy(np.asarray(annot["K"][None], np.float32)).to(device),
+                det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
+        timings["load"] += t1 - t0
+        timings["dispatch"] += time.perf_counter() - t1
+        return i, annot, out
+
+    def process(item):
+        nonlocal count, miss, fp
+        i, annot, out = item
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        persons = model.extract_persons(out, fields=["v3d", "j2d", "transl_pelvis"])[0]
+        t2 = time.perf_counter()
+        timings["wait"] += t1 - t0
+        timings["readback"] += t2 - t1
+
+        # ---- GT meshes (host-only for vertex GT) ----
+        if gt_forward is not None:
+            gt = gt_forward(annot)
+        elif "smplx_vertices" in annot["humans"][0]:
+            verts = np.stack([h["smplx_vertices"] for h in annot["humans"]])
+            Jreg = model.body_model.J_regressor.cpu().numpy()
+            j3d = np.einsum("jv,pvc->pjc", Jreg, verts)
+            j2d = _project_np(j3d, annot["K"]).astype(np.float32)
+            gt = {"v3d": verts, "j3d": j3d, "j2d": j2d}
+        else:
+            raise ValueError("dataset provides no GT meshes and no gt_forward")
+        t3 = time.perf_counter()
+        timings["gt"] += t3 - t2
+
+        n_gt = gt["v3d"].shape[0]
+        count += n_gt
+        if not persons:
+            miss += n_gt
+            timings["match_metrics"] += time.perf_counter() - t3
+            return
+
+        # predictions truncated to the GT joint count (reference train.py:361)
+        n_j = gt["j2d"].shape[1]
+        pred_j2d = [np.asarray(p["j2d"])[:n_j] for p in persons]
+        valid_mask = [np.ones(n_j, bool)] * n_gt
+        best, fps, misses = match_2d_greedy(pred_j2d, list(gt["j2d"]), valid_mask)
+        fp += len(fps)
+        miss += len(misses)
+
+        for pi, gi in best:
+            p_pel = np.asarray(persons[pi]["transl_pelvis"]).reshape(1, 1, 3)
+            g_pel = gt["j3d"][gi][:1][None]
+            # center at the pelvis before the metrics (reference
+            # train.py:373-385)
+            pv = np.asarray(persons[pi]["v3d"])[None] - p_pel
+            gv = gt["v3d"][gi][None] - g_pel
+            meters["pve"].update(float(pve_fn(pv, gv, 0.0, 0.0)[0]))
+            meters["pa_pve"].update(float(pa_pve(pv, gv)[0]))
+        timings["match_metrics"] += time.perf_counter() - t3
+        if log_every and (i + 1) % log_every == 0:
+            log_fn(f"[{i+1}/{n}] pve={meters['pve'].avg:.1f} "
+                   f"pa_pve={meters['pa_pve'].avg:.1f}")
+
+    t_start = time.perf_counter()
+    if gt_forward is not None:
+        in_flight = None
+        for i in range(n):
+            nxt = dispatch(i)  # the card starts image i ...
+            if in_flight is not None:
+                process(in_flight)  # ... while the host scores image i-1
+            in_flight = nxt
+        if in_flight is not None:
+            process(in_flight)
+    else:  # reference-shaped serial loop (train.py:351-357)
+        for i in range(n):
+            process(dispatch(i))
+    wall = time.perf_counter() - t_start
+
+    precision, recall, f1 = compute_prf1(count, miss, fp)
+    return {
+        "pve": meters["pve"].avg,
+        "pa_pve": meters["pa_pve"].avg,
+        "precision": precision,
+        "recall": recall,
+        "f1_score": f1,
+        "n_images": n,
+        "timings": {**{k: round(v, 4) for k, v in timings.items()},
+                    "wall": round(wall, 4)},
+    }

@@ -1,0 +1,125 @@
+"""The port's training CLI (``multihmr_tpu_torch/cli/train.py::main``) end to
+end on the CPU, on the synthetic BEDLAM and EHF trees of
+tests/test_cli_train.py: one epoch of BEDLAM training on each ViT stream
+with the epoch-end BEDLAM + EHF evaluation, ``--eval_only 1 --amp 0``,
+``--resume`` and ``--pretrained``, and the flags of features not ported yet,
+which must raise."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from multihmr_tpu_torch.cli.train import main
+from tests.test_cli_train import _write_bedlam, _write_ehf
+
+TINY = ["--backbone", "dinov2_vits14", "--img_size", "56", "--xat_depth", "1",
+        "--max_people", "4", "--n_devices", "1", "--device", "cpu"]
+TRAIN = ["--batch_size", "2", "--iter_per_epoch", "2", "--lr", "1e-5"]
+
+
+@pytest.fixture
+def trees(tmp_path, monkeypatch):
+    rng = np.random.default_rng(0)
+    _write_bedlam(tmp_path / "data" / "BEDLAM", rng)
+    _write_bedlam(tmp_path / "data" / "BEDLAM", rng, split="validation")
+    _write_ehf(tmp_path / "data" / "EHF", rng)
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def _metrics(name):
+    with open(os.path.join("logs", name, "metrics.jsonl")) as f:
+        return {r["tag"]: r["value"] for r in map(json.loads, f)}
+
+
+@pytest.mark.parametrize("tp_mode", ["ring", "heads"])
+def test_train_cli_end_to_end(trees, capsys, tp_mode):
+    main(TINY + TRAIN + ["--n_epoch", "1", "--tp_mode", tp_mode, "--valset", "bedlam", "ehf",
+                         "--val_n", "2", "1", "--name", "itest"])
+    out = capsys.readouterr().out
+    assert "remat auto" in out and "no remat" in out
+    loss = out.split("epoch 0: mean loss")[1].split()[0]
+    assert np.isfinite(float(loss))
+    assert "eval[bedlam-validation] epoch 0" in out and "eval[ehf-test] epoch 0" in out
+    assert "'n_images': 1" in out.split("eval[ehf-test]")[1][:400]
+    names = os.listdir(os.path.join("ckpts", "itest"))
+    assert "ckpt_000000.pt" in names and "ckpt_000000.json" in names and "state" in names
+    m = _metrics("itest")
+    assert m["bedlam-validation-1/n_images"] == 2 and m["ehf-test-1/n_images"] == 1
+    assert all(np.isfinite(v) for v in m.values())
+
+
+def test_train_cli_eval_only_fp32(trees, capsys):
+    main(TINY + ["--valset", "ehf", "--eval_only", "1", "--amp", "0", "--tp_mode", "ring",
+                 "--name", "itest-eval"])
+    out = capsys.readouterr().out
+    assert "eval[ehf-test] epoch 0" in out and "pve" in out
+    assert not os.path.exists("ckpts")  # evaluation only: no training, no checkpoint
+
+
+def test_train_cli_resume_and_pretrained(trees, capsys):
+    args = TINY + TRAIN + ["--valset", "ehf", "--val_n", "1", "--name", "res", "--resume", "1"]
+    main(args + ["--n_epoch", "1"])
+    out = capsys.readouterr().out
+    assert "no saved train state found" in out and "epoch 0: mean loss" in out
+    main(args + ["--n_epoch", "2"])  # the same command line, one more epoch
+    out = capsys.readouterr().out
+    assert "restored epoch 0, continuing at epoch 1" in out
+    assert "epoch 1: mean loss" in out and "epoch 0: mean loss" not in out
+    state = torch.load(os.path.join("ckpts", "res", "state", "state_000001.pt"),
+                       weights_only=True)
+    assert state["epoch"] == 1
+    # the checkpoint of epoch 1 loads as --pretrained and evaluates
+    main(TINY + ["--valset", "ehf", "--eval_only", "1", "--name", "pre",
+                 "--pretrained", os.path.join("ckpts", "res", "ckpt_000001.pt")])
+    assert "eval[ehf-test] epoch 0" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--n_devices", "2"], "M11"),
+    (["--model_parallel", "2"], "M11"),
+    (["--fsdp", "1"], "M11"),
+    (["--valset", "3dpw"], "M7"),
+    (["--valset", "ehf", "3dpw"], "M7"),
+    (["--visu_to_save", "1"], "render/"),
+    (["--pretrained", "multiHMR_896_L.pt"], "M5 --ckpt"),
+    (["--pretrained", "ckpt.msgpack"], "M5 --ckpt"),
+])
+def test_unported_flags_raise(trees, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        main(TINY[:-4] + ["--device", "cpu"] + flags)
+
+
+def test_unported_flags_raise_before_any_work(trees):
+    # a reference-style .pt with no .json beside it is not this port's checkpoint
+    torch.save({"model_state_dict": {}}, "ref.pt")
+    with pytest.raises(NotImplementedError, match="only this port's own checkpoints"):
+        main(TINY + ["--pretrained", "ref.pt", "--eval_only", "1"])
+    assert not os.path.exists("logs")
+
+
+def test_mean_params_applied_when_present(tmp_path):
+    """From-scratch training starts from smpl_mean_params.npz when it exists
+    (the JAX CLI's apply_mean_params); without it HPH keeps its init."""
+    from multihmr_tpu_torch.cli.train import _apply_mean_params
+    from multihmr_tpu_torch.config import ModelConfig
+    from multihmr_tpu_torch.models.multihmr import MultiHMRNet
+
+    cfg = ModelConfig(backbone="dinov2_vits14", img_size=56, xat_depth=1)
+    net = MultiHMRNet(cfg)
+    before = net.x_attention_head.init_cam.detach().clone()
+    _apply_mean_params(net, cfg, str(tmp_path))  # no asset: unchanged
+    assert torch.equal(net.x_attention_head.init_cam, before)
+    rng = np.random.default_rng(0)
+    mean = {"pose": rng.normal(size=(144,)), "shape": rng.normal(size=(10,)),
+            "cam": np.array([0.7, 0.1, -0.1])}
+    np.savez(tmp_path / "smpl_mean_params.npz", **mean)
+    _apply_mean_params(net, cfg, str(tmp_path))
+    head = net.x_attention_head
+    np.testing.assert_allclose(head.init_cam.detach().numpy()[0], mean["cam"], rtol=1e-6)
+    np.testing.assert_allclose(head.init_betas.detach().numpy()[0], mean["shape"], rtol=1e-6)
+    np.testing.assert_allclose(head.init_body_pose.detach().numpy()[0, :144], mean["pose"],
+                               rtol=1e-6)

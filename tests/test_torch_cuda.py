@@ -7,10 +7,14 @@ has no jax, and tests/conftest.py imports it, so run them there with:
 
 Tolerances: fp32 kernels against the fp32 plain version, 1e-5 on out (fp32
 sums in another order) and 1e-5 on lse. bf16 kernels against the plain
-version computed in fp32 from the same bf16 inputs: out 2e-2 (P is rounded to
-bf16 before P.V and out is rounded to bf16; |out| < 4), lse 1e-3 (fp32
-statistics from fp32 scores). LayerNorm: fp32 out 1e-5; bf16 out one bf16
-ulp of |y| <= 8 (2^-7 relative).
+version computed in fp32 from the same bf16 inputs and rounded to bf16: out
+|out - ref| <= 2^-7 |ref| + 2^-5 rms(ref) elementwise (one bf16 ulp where
+the two roundings fall apart, plus the kernel's rounding of P to bf16 before
+P.V, an error of the scale of the outputs), as chip_smoke.py phases 3 and 12
+hold them; lse 5e-5 (fp32 statistics from fp32
+scores on both sides). The standard-layout forward K5 is held to the same
+tolerances. LayerNorm: fp32 out 1e-5; bf16 out one bf16 ulp of |y| <= 8
+(2^-7 relative).
 
 Flash backward (K3, K4a + K4b) against the plain fp32 backward on the same
 inputs, each gradient's max error relative to its largest magnitude: fp32
@@ -41,6 +45,20 @@ def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def _check_fwd(out, lse, ref_out, ref_lse):
+    """A flash forward's out and lse against its plain version's."""
+    if out.dtype == torch.float32:
+        assert _max_err(out, ref_out) <= 1e-5
+        assert _max_err(lse, ref_lse) <= 1e-5
+    else:
+        ref = ref_out.float()
+        err = (out.float() - ref).abs()
+        beyond = (err - 2 ** -7 * ref.abs()).max().item()
+        floor = 2 ** -5 * ref.square().mean().sqrt().item()
+        assert beyond <= floor, (err.max().item(), beyond, floor)
+        assert _max_err(lse, ref_lse) <= 5e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,kv_len", [(97, None), (2305, None), (640, 577)])
 def test_flash_attention_kernel(dev, dtype, n, kv_len):
@@ -56,9 +74,7 @@ def test_flash_attention_kernel(dev, dtype, n, kv_len):
     ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=kv_len)
     assert out.dtype == dtype and out.shape == q.shape and lse.shape == (2, 4, n)
     lim = n if kv_len is None else kv_len
-    tol_out, tol_lse = (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 1e-3)
-    assert _max_err(out[..., :lim], ref_out[..., :lim]) <= tol_out
-    assert _max_err(lse[..., :lim], ref_lse[..., :lim]) <= tol_lse
+    _check_fwd(out[..., :lim], lse[..., :lim], ref_out[..., :lim], ref_lse[..., :lim])
 
 
 def test_flash_attention_rejects(dev):
@@ -68,6 +84,67 @@ def test_flash_attention_rejects(dev):
     q = torch.zeros((1, 2, 64, 16), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         attention._flash_fwd_impl_t(q, q, q)
+
+
+def _std_qkv(dev, dtype, n, batch=2, heads=4, seed=0):
+    """q, k, v as the standard-stream ViT makes them: [B, H, N, 64] views of
+    one [B, N, 3 * H * 64] projection output."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((batch, n, 3 * heads * 64), device=dev, generator=g).to(dtype)
+    return qkv.reshape(batch, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+# output layouts K5 writes: the merged [B, N, H, 64] buffer (its default),
+# a contiguous [B, H, N, 64] and the JAX kernel's [B, H, 64, N]
+STD_OUT = {
+    "merged": lambda B, H, N, dt, dev: torch.empty((B, N, H, 64), dtype=dt, device=dev).transpose(1, 2),
+    "bhnd": lambda B, H, N, dt, dev: torch.empty((B, H, N, 64), dtype=dt, device=dev),
+    "bhdn": lambda B, H, N, dt, dev: torch.empty((B, H, 64, N), dtype=dt, device=dev).transpose(2, 3),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [97, 640, 2305])
+@pytest.mark.parametrize("layout", sorted(STD_OUT))
+def test_flash_attention_std_kernel(dev, dtype, n, layout):
+    q, k, v = _std_qkv(dev, dtype, n)
+    B, H = q.shape[:2]
+    out = STD_OUT[layout](B, H, n, dtype, dev)
+    cuda_lib.reset_launches()
+    got, lse = attention._flash_fwd_std(q, k, v, out=out)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[attention.KERNEL_STD] == 1 and got.data_ptr() == out.data_ptr()
+    ref_out, ref_lse = attention.flash_fwd_reference(q, k, v)
+    _check_fwd(got, lse, ref_out, ref_lse)
+
+
+def test_flash_attention_std_rejects(dev):
+    q = torch.zeros((1, 2, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="Dh=64"):
+        attention._flash_fwd_std(q, q, q)
+    q = torch.zeros((1, 2, 64, 16), device=dev).transpose(-1, -2)  # channel stride 16
+    with pytest.raises(ValueError, match="16-byte"):
+        attention._flash_fwd_std(q, q, q)
+    q = torch.zeros((1, 2, 16, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        attention._flash_fwd_std(q, q, q)
+
+
+def test_flash_attention_qkv_grad(dev):
+    """K5 forward and K3 backward through the packed autograd Function
+    against autograd through the plain attention, fp32."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((2, 300, 3, 4, 64), device=dev, generator=g)
+    w = torch.randn((2, 300, 256), device=dev, generator=g)
+    a = qkv.clone().requires_grad_()
+    b = qkv.clone().requires_grad_()
+    cuda_lib.reset_launches()
+    (attention.attention_qkv(a) * w).sum().backward()
+    assert cuda_lib.LAUNCHES[attention.KERNEL_STD] == 1
+    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD] == 1
+    q, k, v = b.permute(2, 0, 3, 1, 4).unbind(0)
+    (attention._merge_heads(attention.mha_reference(q, k, v)) * w).sum().backward()
+    assert _rel(a.grad, b.grad) <= BWD_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])

@@ -20,6 +20,7 @@ magnitude) and the tolerance held:
 """
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -148,7 +149,20 @@ def test_demo_main_writes_persons(tmp_path, monkeypatch):
         demo.main(["--img_folder", str(src), "--ckpt", "x.pt", "--device", "cpu"])
 
 
+# an import statement of jax, flax or the JAX package, at any indentation
+# (function-level imports too); ``multihmr_tpu_torch`` does not match
+_JAX_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|multihmr_tpu)\b(?!_torch)", re.M)
+
+
 def test_port_imports_without_jax():
+    assert _JAX_IMPORT.search("def f():\n    from multihmr_tpu.ops import attention\n")
+    assert _JAX_IMPORT.search("if x:\n        import jax.numpy as jnp\n")
+    assert _JAX_IMPORT.search("import flax.linen as nn\n")
+    assert not _JAX_IMPORT.search("    from multihmr_tpu_torch.ops import attention\n")
+    sources = sorted((REPO / "multihmr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    found = [f"{p.relative_to(REPO)}:{m.group(0).strip()}" for p in sources
+             for m in _JAX_IMPORT.finditer(p.read_text())]
+    assert not found, found
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "multihmr_tpu_torch").rglob("*.py")
