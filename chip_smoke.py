@@ -13,8 +13,9 @@ channels-major one (``heads``, K1 and K2). Phases, one line each:
   1. the card, its name and power limit (nvidia-smi);
   2. the kernel build;
   3. K1 (flash-attention forward) against its plain version at the ViT's
-     lengths, bf16 and fp32, with keys masked past kv_len, and at batch 2
-     (the training path's shape);
+     lengths: bf16 at the pre-padded lengths (2,312, 4,104 and 8,472 tokens,
+     junk past kv_len = 2,305, 4,097 and 8,465), fp32 at the true odd
+     lengths, and at batch 2 (the training path's shape);
   4. K2 (channels-major LayerNorm) against its plain version;
   5. multiHMR_672_S in fp32 (LayerScale 0.5, so that the blocks move the
      stream): the card (kernels) against the CPU (plain versions), same
@@ -22,13 +23,14 @@ channels-major one (``heads``, K1 and K2). Phases, one line each:
   6. multiHMR_896_L in bf16 on three images: finite meshes, and 24 K1 and
      48 K2 launches per image;
   7. times (CUDA events, medians after warm-up): the 896_L forward at batch 1,
-     and each forward kernel against its plain version at the 896_L shapes;
+     and each forward kernel against its plain version at the 896_L shapes
+     (K1 on the pre-padded [1, 16, 64, 4104] with kv_len 4097; its bound and
+     SDPA's forward on the 4,097 true tokens);
   8. K3 (fused flash backward) and K4a + K4b (two-pass, the path of
      ``_flash_bwd_impl_t(fused=False)``, whose launches are counted here)
-     against the plain backward at the ViT's lengths, bf16 and fp32, with
-     keys masked past kv_len, and at batch 2 writing one packed
-     [B, 3, H, 64, N] gradient as the training path does; K3 against
-     K4a + K4b;
+     against the plain backward on phase 3's cases, and at batch 2 writing
+     one packed [B, 3, H, 64, N] gradient as the training path does; dk and
+     dv past kv_len exact zeros; K3 against K4a + K4b;
   9. one multiHMR_672_S fp32 train step at batch 2 (ViT cut to 4 of its 12
      blocks), the card against the CPU: loss terms and gradients;
  10. multiHMR_896_L bf16 training, max_people 8, batch 2: 5 steps through
@@ -37,16 +39,19 @@ channels-major one (``heads``, K1 and K2). Phases, one line each:
      steps with remat none, "mlp" and "block" at batch 2 (launches per step,
      step time, peak memory) and batch 1 (peak memory), and the fit of
      ``train/memory.py``'s constants to those peaks;
- 11. times of the backward kernels, their plain version and PyTorch's
-     scaled_dot_product_attention backward at [1, 16, 64, 4097] bf16, with
-     the least time the card could take for each kernel's work;
+ 11. times of the backward kernels and their plain version at
+     [1, 16, 64, 4104] bf16 with kv_len 4097, and PyTorch's
+     scaled_dot_product_attention backward at [1, 16, 4097, 64], with the
+     least time the card could take for each kernel's work on the 4,097
+     true tokens;
  12. K5 (standard-layout flash-attention forward) against its plain version
      at the ViT's lengths, bf16 and fp32, batch 1 and 2, on strided views of
      one [B, N, 3 * 16 * 64] projection, into the merged [B, N, H, 64] and
-     the [B, H, 64, N] output layouts; four deliberately broken copies of
-     K5, built from its source in a temporary directory, which that limit
-     must fail; then K5, K1 and the SDPA forward timed at [1, 16, 4097, 64]
-     bf16, with K5's bound;
+     the [B, H, 64, N] output layouts; deliberately broken copies of K5 (4),
+     K1 (2) and K3 (2), each built from its kernel's source with one textual
+     change in a temporary directory, which phase 12's, phase 3's and phase
+     8's limits must fail; then K5, K1 and the SDPA forward timed at
+     [1, 16, 4097, 64] bf16, with K5's bound;
  13. the standard stream (``tp_mode="ring"``): multiHMR_672_S fp32 card
      against CPU (inference at LayerScale 0.5 as in phase 5, and one batch-2
      train step cut to 4 blocks), then multiHMR_896_L bf16 at
@@ -173,11 +178,13 @@ def case_name(n, dt, kv_len, batch):
     return (f"[{batch},16,64,{n}] {str(dt)[6:]}" + (f" kv_len={kv_len}" if kv_len else ""))
 
 
-# (N, dtype, kv_len, batch): the ViT's three lengths, a pre-padded stream
-# with junk past kv_len, and the training path's batch 2 at 896_L
-CASES = ([(n, dt, None, 1) for n in (2305, 4097, 8465) for dt in (torch.bfloat16, torch.float32)]
-         + [(4224, torch.bfloat16, 4097, 1)]
-         + [(4097, dt, None, 2) for dt in (torch.bfloat16, torch.float32)])
+# (N, dtype, kv_len, batch): the ViT's three token counts, in bf16 on its
+# stream pre-padded to a multiple of 8 (junk past kv_len) and in fp32 (any
+# stride) at the true odd lengths; the training path's batch 2 at 896_L
+CASES = ([(n_pad, torch.bfloat16, n, 1) for n_pad, n in ((2312, 2305), (4104, 4097), (8472, 8465))]
+         + [(n, torch.float32, None, 1) for n in (2305, 4097, 8465)]
+         + [(4104, torch.bfloat16, 4097, 2), (4097, torch.float32, None, 2)])
+K1_MAIN = [(4104, torch.bfloat16, 4097, b) for b in (1, 2)]  # the 896_L shapes
 
 
 def fwd_check(out, ref_out, lse, ref_lse):
@@ -214,7 +221,7 @@ def check_k1(attention):
         errs[(n, dt, kv_len, batch)] = e_out
         del q, k, v, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
-    return max(errs[(4097, torch.bfloat16, None, b)] for b in (1, 2))
+    return max(errs[c] for c in K1_MAIN)
 
 
 def check_k2(norm):
@@ -326,15 +333,17 @@ def time_forward(model, attention, norm, card):
         fwd_ms = cuda_ms(lambda: model.forward(x, K), iters=5)
     log(7, f"896_L bf16 forward, batch 1: {fwd_ms:.3f} ms [{card}]")
     F = torch.nn.functional
-    q, k, v = qkv_views(4097, torch.bfloat16)
-    B, H, Dh, N = q.shape
-    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(q, k, v), iters=20)
-    k1_plain = cuda_ms(lambda: attention.mha_reference_t(q, k, v), iters=20)
-    qs, ks, vs = (t.transpose(-1, -2).contiguous() for t in (q, k, v))  # [B, H, N, Dh]
+    N = 4097  # the true tokens: the bound and SDPA's work
+    q, k, v = qkv_views(4104, torch.bfloat16, kv_len=N)
+    B, H, Dh, _ = q.shape
+    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(q, k, v, kv_len=N), iters=20)
+    k1_plain = cuda_ms(lambda: attention.mha_reference_t(q, k, v, kv_len=N), iters=20)
+    qs, ks, vs = (t[..., :N].transpose(-1, -2).contiguous() for t in (q, k, v))  # [B, H, N, Dh]
     k1_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), iters=20)
     k1_bound = bound_ms(4 * N * N * Dh * B * H, (4 * B * H * Dh * N) * 2 + B * H * N * 4)
-    log(7, f"K1 [1,16,64,4097] bf16: kernel {k1:.4f} ms, plain {k1_plain:.4f} ms, "
-           f"SDPA forward {k1_lib:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) [{card}]")
+    log(7, f"K1 [1,16,64,4104] kv_len 4097 bf16: kernel {k1:.4f} ms, plain {k1_plain:.4f} ms, "
+           f"SDPA forward [1,16,4097,64] {k1_lib:.4f} ms, bound (4,097 tokens) "
+           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) [{card}]")
 
     xn = torch.randn((1, 1024, 4097), device="cuda").to(torch.bfloat16)
     s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
@@ -356,8 +365,8 @@ def _grad_rel(a, b):
 
 def check_bwd(attention, cuda_lib):
     """K3 and K4a + K4b against the plain backward. Returns the max abs
-    errors at [B, 16, 64, 4097] bf16, B = 1 and 2 (K3's dq/dk/dv, K4a's dq,
-    K4b's dk/dv), and the launches of the two-pass path
+    errors at [B, 16, 64, 4104] bf16 with kv_len 4097, B = 1 and 2 (K3's
+    dq/dk/dv, K4a's dq, K4b's dk/dv), and the launches of the two-pass path
     ``_flash_bwd_impl_t(fused=False)``, counted from 0 just before each of
     its calls."""
     errs = {"K3": 0.0, "K4a": 0.0, "K4b": 0.0}
@@ -387,7 +396,7 @@ def check_bwd(attention, cuda_lib):
         e34 = [_grad_rel(a, r) for a, r in zip(cut(fused), cut(two))]
         zeros = kv_len is None or not any(t[..., kv_len:].any() for t in fused[1:] + two[1:])
         tol = BWD_TOL[dt]
-        ok = max(e3 + e4 + e34) <= tol and zeros
+        ok = all(e <= tol for e in e3 + e4 + e34) and zeros  # NaN fails
         name = case_name(n, dt, kv_len, batch) + (", packed gradient" if batch > 1 else "")
         fmt = lambda es: "/".join(f"{e:.2e}" for e in es)  # noqa: E731
         log(8, f"{name}: rel err dq/dk/dv K3 {fmt(e3)}, K4a+K4b {fmt(e4)}, K3 vs K4 "
@@ -396,7 +405,7 @@ def check_bwd(attention, cuda_lib):
                + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash backward {name} disagrees with its plain version")
-        if (n, dt, kv_len) == (4097, torch.bfloat16, None):
+        if (n, dt, kv_len, batch) in K1_MAIN:
             abs_err = lambda a, r: (a.float() - r.float()).abs().max().item()  # noqa: E731
             errs["K3"] = max(errs["K3"], *(abs_err(a, r) for a, r in zip(fused, ref)))
             errs["K4a"] = max(errs["K4a"], abs_err(two[0], ref[0]))
@@ -574,12 +583,15 @@ def memory_fit(peaks, cfg):
 
 
 def time_bwd(attention, card):
-    """Times at [1, 16, 64, 4097] bf16: K3, K4a, K4b, the plain backward and
-    the SDPA backward (one forward graph, backward with retain_graph)."""
+    """Times at [1, 16, 64, 4104] bf16 with kv_len 4097 (the pre-padded
+    896_L stream): K3, K4a, K4b and the plain backward; the SDPA backward
+    (one forward graph, backward with retain_graph) on the 4,097 true
+    tokens."""
     F = torch.nn.functional
-    q, k, v = qkv_views(4097, torch.bfloat16, seed=11)
-    B, H, Dh, N = q.shape
-    o, lse = attention._flash_fwd_impl_t(q, k, v)
+    N = 4097  # the true tokens: the bounds and SDPA's work
+    q, k, v = qkv_views(4104, torch.bfloat16, seed=11, kv_len=N)
+    B, H, Dh, _ = q.shape
+    o, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=N)
     do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
     dd = (do.float() * o.float()).sum(2)
     outs = [torch.empty_like(o) for _ in range(3)]
@@ -590,21 +602,24 @@ def time_bwd(attention, card):
 
     t = {name: cuda_ms(kern(name), iters=10) for name in
          (attention.KERNEL_BWD, attention.KERNEL_BWD_DQ, attention.KERNEL_BWD_DKV)}
-    whole = cuda_ms(lambda: attention._flash_bwd_impl_t(q, k, v, o, lse, do), iters=10)
-    plain = cuda_ms(lambda: attention.flash_bwd_reference_t(q, k, v, o, lse, do), iters=3)
-    qs, ks, vs = (x.transpose(-1, -2).contiguous().requires_grad_() for x in (q, k, v))
+    whole = cuda_ms(lambda: attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=N), iters=10)
+    plain = cuda_ms(lambda: attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=N),
+                    iters=3)
+    qs, ks, vs = (x[..., :N].transpose(-1, -2).contiguous().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs)
-    g = do.transpose(-1, -2).contiguous()
+    g = do[..., :N].transpose(-1, -2).contiguous()
     lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True), iters=10)
     nbytes = lambda n_tensors: n_tensors * B * H * Dh * N * 2 + B * H * N * 4  # noqa: E731
     prod = 2 * N * N * Dh * B * H  # one N x N x 64 product
     bounds = {attention.KERNEL_BWD: bound_ms(5 * prod, nbytes(8)),  # q k v o dO in, dq dk dv out
               attention.KERNEL_BWD_DQ: bound_ms(3 * prod, nbytes(6)),  # s, dp, dq
               attention.KERNEL_BWD_DKV: bound_ms(4 * prod, nbytes(7))}  # s, dp, dv, dk
-    log(11, f"flash backward [1,16,64,4097] bf16 [{card}]: K3 {t[attention.KERNEL_BWD]:.4f} ms "
+    log(11, f"flash backward [1,16,64,4104] kv_len 4097 bf16 [{card}]: K3 "
+            f"{t[attention.KERNEL_BWD]:.4f} ms "
             f"(whole fused backward with D and the dq cast {whole:.4f} ms), "
             f"K4a {t[attention.KERNEL_BWD_DQ]:.4f} ms + K4b {t[attention.KERNEL_BWD_DKV]:.4f} ms, "
-            f"plain {plain:.4f} ms, SDPA backward {lib:.4f} ms; bounds K3/K4a/K4b "
+            f"plain {plain:.4f} ms, SDPA backward [1,16,4097,64] {lib:.4f} ms; bounds "
+            f"(4,097 tokens) K3/K4a/K4b "
             + "/".join(f"{b[0]:.4f}" for b in bounds.values()) + " ms (operations)")
     return {name: (t[name], plain, lib if name == attention.KERNEL_BWD else None, *bounds[name])
             for name in t}
@@ -655,72 +670,96 @@ def check_k5(attention):
     return worst
 
 
-# deliberately broken copies of K5's bf16 path, one textual change each to
-# csrc/flash_fwd_std.cu: phase 12's limit must fail every one. The earlier
-# 2e-2 abs limit passes the last, whose error is 1/64 of |out| (|out| < 0.3
-# on these inputs)
+# deliberately broken copies of the bf16 flash kernels, one textual change
+# each to the kernel's source: the limit that holds the sound kernel to its
+# plain version (phase 12's for K5, phase 3's for K1, phase 8's for K3) must
+# fail every one. The earlier 2e-2 abs limit passes K5's last, whose error
+# is 1/64 of |out| (|out| < 0.3 on these inputs)
 _PV_MMA = "mma_bf16(o[2 * dp + 1], a, b[2], b[3]);"
 K5_MUTANTS = {
-    "P.V k-step 3 reads the neighbouring v sub-tile": (
-        "8 * (2 * dp + mi / 2)]);", "8 * (2 * (kk == 3 ? dp ^ 1 : dp) + mi / 2)]);"),
-    "channels 56-63 of keys 48-63 of every kv tile dropped": (
-        _PV_MMA, "if (kk != 3 || dp != 3) " + _PV_MMA),
-    "channels 56-63 of keys 48-63 of the first kv tile dropped": (
-        _PV_MMA, "if (j != 0 || kk != 3 || dp != 3) " + _PV_MMA),
-    "output normalised by a row sum 1/64 too large": (
-        "inv[r] = 1.f / l;", "inv[r] = 1.f / (l * 1.015625f);"),
+    "P.V k-step 3 reads the neighbouring v sub-tile": [
+        ("8 * (2 * dp + mi / 2)]);", "8 * (2 * (kk == 3 ? dp ^ 1 : dp) + mi / 2)]);")],
+    "channels 56-63 of keys 48-63 of every kv tile dropped": [
+        (_PV_MMA, "if (kk != 3 || dp != 3) " + _PV_MMA)],
+    "channels 56-63 of keys 48-63 of the first kv tile dropped": [
+        (_PV_MMA, "if (j != 0 || kk != 3 || dp != 3) " + _PV_MMA)],
+    "output normalised by a row sum 1/64 too large": [
+        ("inv[r] = 1.f / l;", "inv[r] = 1.f / (l * 1.015625f);")],
+}
+_K1_PV = "wgmma_m64n64k16<0>(o, pf[kk], wgmma_desc(sV + 16 * kk, 0, 1024), 1);"
+K1_MUTANTS = {
+    "P.V k-step 3 (keys 48-63) of every kv tile dropped": [(_K1_PV, "if (kk != 3) " + _K1_PV)],
+    "P.V k-step 3 (keys 48-63) of the first kv tile dropped": [
+        (_K1_PV, "if (j != 0 || kk != 3) " + _K1_PV)],
+}
+_K3_DQ = "wDQ[ch * kLdDQ + 16 * (warp % 4) + g + 8 * (i / 2)] = dqa[j][i] * scale;"
+K3_MUTANTS = {
+    "dq channels 24-31 and 56-63 dropped from the partial of every query tile": [
+        (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;", "= j == 3 ? 0.f : dqa[j][i] * scale;"))],
+    "dq channels 24-31 and 56-63 dropped from the partial of the first query tile": [
+        (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;",
+                                "= t == 0 && j == 3 ? 0.f : dqa[j][i] * scale;"))],
 }
 
 
-def check_k5_mutants(attention, cuda_lib):
-    """Build each mutant from a copy of csrc/flash_fwd_std.cu in a temporary
-    directory (one nvcc each, all started together), run it through K5's
-    wrapper at [1, 16, 4097, 64] bf16 and hold it to phase 12's limit, which
-    must fail. Returns {mutant: max abs out error}."""
-    import ctypes
-    import shutil
+def check_mutants(attention, cuda_lib):
+    """Build the mutants of K5, K1 and K3 (cuda_lib.build_variants: one nvcc
+    each, all started together), run each through its kernel's wrapper at the 896_L shape
+    ([1, 16, 4097, 64] for K5; [1, 16, 64, 4104] with kv_len 4097 for K1
+    and K3) and hold it to its sound kernel's limit, which must fail.
+    Returns {kernel: {mutant: max abs error}}."""
     import tempfile
-    from pathlib import Path
 
-    src = (cuda_lib.CSRC / "flash_fwd_std.cu").read_text()
-    q, k, v = std_qkv_views(4097, torch.bfloat16, seed=4097)
-    ref_out, ref_lse = attention.flash_fwd_reference(q, k, v)
-    sound = cuda_lib.library().mhmr_flash_fwd_std
-    launches = cuda_lib.LAUNCHES[attention.KERNEL_STD]
-    readings, library = {}, cuda_lib.library
+    counted = (attention.KERNEL_STD, attention.KERNEL, attention.KERNEL_BWD)
+    launches = {k: cuda_lib.LAUNCHES[k] for k in counted}
+    readings = {"K5": {}, "K1": {}, "K3": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        builds = {}
-        for i, (name, (old, new)) in enumerate(K5_MUTANTS.items()):
-            if src.count(old) != 1:
-                raise AssertionError(f"mutant {name!r}: its site is not in the kernel source")
-            d = Path(tmp) / f"m{i}"
-            d.mkdir()
-            shutil.copy(cuda_lib.CSRC / "common.cuh", d)
-            (d / "flash_fwd_std.cu").write_text(src.replace(old, new))
-            builds[name] = (d / "lib.so", subprocess.Popen(
-                [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-                 str(d / "flash_fwd_std.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name, (so, proc) in builds.items():
-            text = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise AssertionError(f"mutant {name!r} did not build:\n{text}")
-            lib = ctypes.CDLL(str(so))
-            lib.mhmr_flash_fwd_std.argtypes = sound.argtypes
-            lib.mhmr_flash_fwd_std.restype = sound.restype
-            cuda_lib.library = lambda lib=lib: lib  # noqa: E731
-            try:
+        builds = {"K5": cuda_lib.build_variants("flash_fwd_std.cu", K5_MUTANTS, tmp),
+                  "K1": cuda_lib.build_variants("flash_fwd.cu", K1_MUTANTS, tmp),
+                  "K3": cuda_lib.build_variants("flash_bwd.cu", K3_MUTANTS, tmp)}
+        q, k, v = std_qkv_views(4097, torch.bfloat16, seed=4097)
+        ref_out, ref_lse = attention.flash_fwd_reference(q, k, v)
+        for name, build in builds["K5"].items():
+            with cuda_lib.use_variant(name, build, "mhmr_flash_fwd_std"):
                 out, lse = attention._flash_fwd_std(q, k, v)
-            finally:
-                cuda_lib.library = library
             passed, e_out, text = fwd_check(out, ref_out, lse, ref_lse)
             log(12, f"K5 mutant ({name}) [1,16,4097,64] bf16: {text}; the old "
                     f"2e-2 abs limit {'passes' if e_out <= 2e-2 else 'fails'} it; phase 12's "
                     f"limit {'PASSES IT: FAIL' if passed else 'fails it: ok'}")
             if passed:
                 raise AssertionError(f"phase 12's limit passes the broken K5 ({name})")
-            readings[name] = e_out
-    cuda_lib.LAUNCHES[attention.KERNEL_STD] = launches  # the mutants' launches do not count
+            readings["K5"][name] = e_out
+        n = 4097
+        q, k, v = qkv_views(4104, torch.bfloat16, seed=n, kv_len=n)
+        ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=n)
+        for name, build in builds["K1"].items():
+            with cuda_lib.use_variant(name, build, "mhmr_flash_fwd_t"):
+                out, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=n)
+            passed, e_out, text = fwd_check(out[..., :n], ref_out[..., :n], lse[..., :n],
+                                            ref_lse[..., :n])
+            log(12, f"K1 mutant ({name}) [1,16,64,4104] kv_len 4097 bf16: {text}; phase 3's "
+                    f"limit {'PASSES IT: FAIL' if passed else 'fails it: ok'}")
+            if passed:
+                raise AssertionError(f"phase 3's limit passes the broken K1 ({name})")
+            readings["K1"][name] = e_out
+        o, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=n)
+        do = torch.randn(q.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(5)).to(torch.bfloat16)
+        ref = attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=n)
+        for name, build in builds["K3"].items():
+            with cuda_lib.use_variant(name, build, "mhmr_flash_bwd_t"):
+                grads = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=n)
+            errs = [_grad_rel(a[..., :n], r[..., :n]) for a, r in zip(grads, ref)]
+            passed = max(errs) <= BWD_TOL[torch.bfloat16]
+            log(12, f"K3 mutant ({name}) [1,16,64,4104] kv_len 4097 bf16: rel err dq/dk/dv "
+                    + "/".join(f"{e:.2e}" for e in errs) + f" (tol {BWD_TOL[torch.bfloat16]:g}); "
+                    f"phase 8's limit {'PASSES IT: FAIL' if passed else 'fails it: ok'}")
+            if passed:
+                raise AssertionError(f"phase 8's limit passes the broken K3 ({name})")
+            readings["K3"][name] = max((a[..., :n].float() - r[..., :n].float()).abs().max().item()
+                                       for a, r in zip(grads, ref))
+    for kern in counted:  # the mutants' launches do not count
+        cuda_lib.LAUNCHES[kern] = launches[kern]
     return readings
 
 
@@ -733,12 +772,13 @@ def time_k5(attention, card):
     k5 = cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20)
     plain = cuda_ms(lambda: attention.flash_fwd_reference(q, k, v), iters=20)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
-    qt, kt, vt = qkv_views(4097, torch.bfloat16)
-    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(qt, kt, vt), iters=20)
+    qt, kt, vt = qkv_views(4104, torch.bfloat16, kv_len=N)
+    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(qt, kt, vt, kv_len=N), iters=20)
     bound = bound_ms(4 * N * N * Dh * B * H, 4 * B * H * N * Dh * 2 + B * H * N * 4)
     log(12, f"K5 [1,16,4097,64] bf16 (strided views of the projection): kernel {k5:.4f} ms, "
             f"plain {plain:.4f} ms, SDPA forward on the same views {lib:.4f} ms, "
-            f"K1 [1,16,64,4097] {k1:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+            f"K1 [1,16,64,4104] kv_len 4097 {k1:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
+            f"[{card}]")
     return (k5, plain, lib, *bound)
 
 
@@ -1025,7 +1065,7 @@ def main() -> int:
     train = phase(10, run_train_896, cuda_lib, attention, norm)
     bwd = phase(11, time_bwd, attention, card)
     k5_err = phase(12, check_k5, attention)
-    k5_mutants = phase(12, check_k5_mutants, attention, cuda_lib)
+    mutants = phase(12, check_mutants, attention, cuda_lib)
     k5_times = phase(12, time_k5, attention, card)
     phase(13, check_e2e, build_model, named_config, demo, cuda_lib, attention, norm, 13, "ring")
     phase(13, check_train_e2e, cuda_lib, attention, norm, 13, "ring")
@@ -1033,7 +1073,7 @@ def main() -> int:
                         cast_backbone_bf16, cuda_lib, attention, norm, card)
     torch.cuda.empty_cache()
     cli_launches = phase(14, run_cli, cuda_lib, attention, norm)
-    if failed or None in (fwd, bwd_check, train, bwd, k5_err, k5_mutants, k5_times, fwd_streams,
+    if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
                           cli_launches):
         log("end", f"failed phases: {failed}")
         return 1

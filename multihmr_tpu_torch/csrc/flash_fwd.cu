@@ -1,4 +1,4 @@
-// Flash-attention forward in the channels-major layout.
+// Flash-attention forward in the channels-major layout (K1).
 //
 // out[b,h,:,n] = softmax_m(scale * q[b,h,:,n] . k[b,h,:,m]) v[b,h,:,m] over
 // keys m < kv_len, plus the natural-log LSE of every query row. q, k and v
@@ -9,29 +9,42 @@
 // Replaces the Pallas TPU kernel multihmr_tpu/ops/attention.py::_fwd_kernel_t
 // (called from _flash_fwd_impl_t), which the ViT runs once per block.
 //
-// Bound: compute. At 896_L (H = 16, N = 4097, Dh = 64) one call does
-// 4 * N^2 * Dh * H = 68.7 GFLOP on 3 * 8.4 MB of bf16 operands, several
-// thousand flops per byte, so the tensor cores are the limit, and the N^2
-// score matrix must never reach device memory.
+// Bound: compute. At 896_L (H = 16, kv_len = 4097, Dh = 64) one call does
+// 4 * N^2 * Dh * H = 68.7 GFLOP (0.069 ms at 989 TFLOP/s) on 3 * 8.4 MB of
+// bf16 operands, several thousand flops per byte, so the tensor cores are
+// the limit, and the N^2 score matrix must never reach device memory. On
+// the H100 the kernel reads 0.22 ms against that 0.069: each warpgroup's
+// chain (wait for a tile, S, softmax, P.V) runs in series, and removing any
+// one part saves at most 0.044 ms (tools/kernel_timing.py variants). The
+// next step is FA3's overlap of one tile's softmax with the next's products.
 //
-// Design (bf16): one block of eight warps per (batch*head, 128-query tile);
-// each warp owns 16 query rows, and all eight share each staged k/v tile.
-// The q tile stays in registers as mma A-fragments for the whole kv walk. Each 64-key tile of k and v is staged in
-// shared memory in the global [channel][token] layout (so the staging loads
-// are coalesced along tokens for any N, including odd ones), and ldmatrix
-// (.trans for q and k) turns it into mma.sync.m16n8k16 fragments. Scores and
-// the output accumulate in fp32 registers; the online softmax keeps a running
-// max and sum per row in fp32, in exp2 units with scale * log2(e) folded in.
-// The score fragments are re-packed to bf16 in registers as the A operand of
-// P.V, so P never touches shared memory. Keys at or past kv_len are masked to
-// -inf in the last tile and their k/v entries are staged as zeros, so junk
-// past kv_len cannot leak in. The output tile goes through shared memory to
-// be stored coalesced along tokens.
+// Design (bf16; the token count and the strides are multiples of 8, as the
+// ViT's pre-padded stream has them, and the wrapper checks). One block of two
+// warpgroups per (batch*head, 128-query tile); warpgroup w owns queries
+// 64w..64w+63, each of its warps 16 of them. Every copy is a 16-byte
+// cp.async of part of a 128-byte channel row into a 128-byte-swizzled
+// [64 channel][64 token] tile (common.cuh): the q tiles once, then a ring of
+// kStages k/v tile pairs, so that tiles j+1 and j+2 are in flight while tile
+// j is multiplied. Products are wgmma m64n64k16 with fp32 accumulators:
+//  * S = q k^T: A = the warpgroup's q tile, [channel = depth][query], and B
+//    = the k tile, [channel = depth][key], both from shared memory and both
+//    MN-major (imm-trans-a, imm-trans-b). q stays there for the whole walk:
+//    held in registers as a loop-invariant A fragment, it is not kept live
+//    by ptxas once the first wgmma is issued;
+//  * O += P v: A = P re-packed to bf16 in registers from S's accumulators
+//    (as the TPU kernel rounds it), B = the v tile [channel][key], K-major.
+// The online softmax keeps a running max and sum per row in fp32, in exp2
+// units with scale * log2(e) folded in. Keys at or past kv_len are masked to
+// -inf before the max, and their v entries are zeroed in shared memory (last
+// tile only), so junk or NaN in a pre-padded stream cannot leak in. The
+// output goes through shared memory as [channel][query] tiles and out with
+// 16-byte stores.
 //
 // Design (fp32, the precision-check mode): one thread per query row, the
 // scaled q row and the output row in registers, 64-key k/v tiles in shared
 // memory read as broadcasts, and the same online softmax on chunks of 16
-// keys, in plain fp32 FMAs (no TF32: the fp32 path exists to be exact).
+// keys, in plain fp32 FMAs (no TF32: the fp32 path exists to be exact). It
+// takes any N and strides.
 #include "common.cuh"
 
 namespace mhmr {
@@ -40,45 +53,52 @@ namespace {
 constexpr int kDh = 64;
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kBlockM = 128;  // query rows per block (8 warps x 16)
+constexpr int kBlockM = 128;  // query rows per block (2 warpgroups x 64)
 constexpr int kBlockN = 64;   // keys per kv tile
 constexpr int kThreads = 256;
-// smem row strides (elements) of the [channel][token] tiles, padded by 8 so
-// that the 8 rows an ldmatrix phase reads fall in distinct banks
-constexpr int kLdQ = kBlockM + 8;  // 272 B
-constexpr int kLd = kBlockN + 8;   // 144 B
+constexpr int kStages = 3;    // k/v tile pairs in the ring
+// two q tiles, the k/v ring, and slack to align the base to 1024 bytes
+constexpr int kSmemBf16 = (2 + 2 * kStages) * kTileElems * 2 + 1024;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
                         const uint16_t* __restrict__ k,
                         const uint16_t* __restrict__ v,
                         uint16_t* __restrict__ out, float* __restrict__ lse,
                         int H, int N, int kv_len, Strides st,
                         float scale_log2) {
-  __shared__ __align__(16) uint16_t sQ[kDh * kLdQ];
-  __shared__ __align__(16) uint16_t sK[kDh * kLd];
-  __shared__ __align__(16) uint16_t sV[kDh * kLd];
+  extern __shared__ unsigned char smem_raw[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(align1024(smem_raw));  // 2 tiles
+  uint16_t* sKV = sQ + 2 * kTileElems;  // stage s: k tile 2s, v tile 2s + 1
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int mi = lane / 8;  // which 8x8 matrix this lane addresses in ldmatrix.x4
-  const int mr = lane % 8;  // which row of it
-  const int g = lane / 4;   // mma group: rows g and g + 8
-  const int tq = lane % 4;  // thread in group: columns 2tq, 2tq + 1
+  const int g = lane / 4;   // accumulator rows g and g + 8
+  const int tq = lane % 4;  // accumulator columns 2tq, 2tq + 1
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kBlockM;
   const long long base = (bh / H) * st.b + (bh % H) * st.h;
+  const uint16_t* qb = q + base;
+  const uint16_t* kb = k + base;
+  const uint16_t* vb = v + base;
+  const int n_tiles = (kv_len + kBlockN - 1) / kBlockN;
 
-  stage_tile<kBlockM, kLdQ, kThreads>(sQ, q + base, st.d, st.n, m0, N, tid);
-  __syncthreads();
-
-  // q as A fragments (row = query, col = channel): 4 k-steps of 16 channels
-  uint32_t qf[4][4];
+  // q once, then the first kStages - 1 k/v tiles: one commit group each
+  load_tile_async<kThreads>(sQ, qb, st.d, m0, N, tid);
+  load_tile_async<kThreads>(sQ + kTileElems, qb, st.d, m0 + 64, N, tid);
+  cp_async_commit();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldsm_x4_trans(qf[ks], &sQ[(16 * ks + (mi / 2) * 8 + mr) * kLdQ +
-                              16 * warp + (mi % 2) * 8]);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile_async<kThreads>(sKV + 2 * s * kTileElems, kb, st.d, s * kBlockN, N, tid);
+      load_tile_async<kThreads>(sKV + (2 * s + 1) * kTileElems, vb, st.d, s * kBlockN, N, tid);
+    }
+    cp_async_commit();
+  }
+  // q stays in shared memory: this warpgroup's 64 queries are one tile, the
+  // A operand of S = q k^T ([channel = depth][query], MN-major)
+  const uint16_t* sQw = sQ + (warp / 4) * kTileElems;
 
   float o[8][4];
 #pragma unroll
@@ -88,34 +108,46 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
   float row_max[2] = {-INFINITY, -INFINITY};  // log2 units
   float row_sum[2] = {0.f, 0.f};              // this thread's columns only
 
-  const int n_tiles = (kv_len + kBlockN - 1) / kBlockN;
   for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kBlockN;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    stage_tile<kBlockN, kLd, kThreads>(sK, k + base, st.d, st.n, n0, kv_len, tid);
-    stage_tile<kBlockN, kLd, kThreads>(sV, v + base, st.d, st.n, n0, kv_len, tid);
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, &sK[(16 * ks + (mi % 2) * 8 + mr) * kLd +
-                             8 * (2 * np + mi / 2)]);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile j have landed
+    fence_async_shared();
+    __syncthreads();  // ... every thread's; and all are done with tile j - 1
+    {
+      const int jn = j + kStages - 1;  // refill the stage tile j - 1 used
+      if (jn < n_tiles) {
+        uint16_t* st_k = sKV + 2 * (jn % kStages) * kTileElems;
+        load_tile_async<kThreads>(st_k, kb, st.d, jn * kBlockN, N, tid);
+        load_tile_async<kThreads>(st_k + kTileElems, vb, st.d, jn * kBlockN, N, tid);
       }
+      cp_async_commit();
+    }
+    const uint16_t* sK = sKV + 2 * (j % kStages) * kTileElems;
+    uint16_t* sV = const_cast<uint16_t*>(sK) + kTileElems;
+    const int n0 = j * kBlockN;
+    const bool tail = n0 + kBlockN > kv_len;
+    if (tail) {  // v entries of keys at or past kv_len -> exact zeros
+      for (int e = tid; e < kTileElems; e += kThreads) {
+        const int t = e % kBlockN;
+        if (n0 + t >= kv_len) sV[swz(e / kBlockN, t)] = 0;
+      }
+      fence_async_shared();
+      __syncthreads();
     }
 
+    // S = q k^T for this warpgroup's 64 queries x 64 keys (the warp's 16
+    // rows: 8 n-tiles of 8 keys); k-step ks is rows 16ks.. of both tiles
+    float s[8][4];
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sQw + 16 * ks * 64, 1024, 1024),
+                               wgmma_desc(sK + 16 * ks * 64, 1024, 1024), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+
     // scale into log2 units, mask keys >= kv_len in the last tile
-    const bool tail = n0 + kBlockN > kv_len;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -134,7 +166,7 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       // mx is finite: every tile holds at least one key < kv_len
-      const float corr = exp2f(row_max[r] - mx);
+      const float corr = fast_exp2(row_max[r] - mx);
       row_max[r] = mx;
       float sum = row_sum[r] * corr;
 #pragma unroll
@@ -144,31 +176,30 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
       }
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - mx);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - mx);
+        s[nt][2 * r] = fast_exp2(s[nt][2 * r] - mx);
+        s[nt][2 * r + 1] = fast_exp2(s[nt][2 * r + 1] - mx);
         sum += s[nt][2 * r] + s[nt][2 * r + 1];
       }
       row_sum[r] = sum;
     }
 
-    // O += P v: P's C fragments of n-tiles 2kk, 2kk+1 are the A fragment of
-    // k-step kk (16 keys); v^T fragments come from the [channel][key] tile
+    // O += P v: P's accumulators of n-tiles 2kk, 2kk+1 are the A fragment of
+    // k-step kk (16 keys); B = the v tile, K-major, 32 bytes further per step
+    uint32_t pf[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < 4; ++kk) c_to_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
+    reg_fence(o);
+    wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t b[4];
-        ldsm_x4(b, &sV[(8 * (2 * dp + mi / 2) + mr) * kLd + 16 * kk +
-                       (mi % 2) * 8]);
-        mma_bf16(o[2 * dp], a, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<0>(o, pf[kk], wgmma_desc(sV + 16 * kk, 0, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
   }
 
-  // epilogue: normalise, LSE, stage the [channel][query] tile in sQ
+  // epilogue: normalise, LSE, stage the [channel][query] tiles in sQ (each
+  // warpgroup's own tile: its wgmmas reading sQw have completed)
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -180,23 +211,25 @@ flash_fwd_t_bf16_kernel(const uint16_t* __restrict__ q,
     if (tq == 0 && qrow < N)
       lse[static_cast<long long>(bh) * N + qrow] = (row_max[r] + log2f(l)) * kLn2;
   }
-  __syncthreads();  // all warps are past their reads of sQ
+  uint16_t* sO = sQ + (warp / 4) * kTileElems;
 #pragma unroll
   for (int d = 0; d < 8; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ch = 8 * d + 2 * tq + (i % 2);
-      const int col = 16 * warp + g + 8 * (i / 2);
-      sQ[ch * kLdQ + col] = BF16::store(o[d][i] * inv[i / 2]);
+      const int col = 16 * (warp % 4) + g + 8 * (i / 2);
+      sO[swz(ch, col)] = BF16::store(o[d][i] * inv[i / 2]);
     }
   __syncthreads();
   uint16_t* ob = out + static_cast<long long>(bh) * kDh * N;
-#pragma unroll 8
-  for (int i = 0; i < (kDh * kBlockM) / kThreads; ++i) {
+#pragma unroll
+  for (int i = 0; i < (kDh * kBlockM / 8) / kThreads; ++i) {
     const int e = i * kThreads + tid;
-    const int d = e / kBlockM;
-    const int t = e % kBlockM;
-    if (m0 + t < N) ob[static_cast<long long>(d) * N + m0 + t] = sQ[d * kLdQ + t];
+    const int ch = e / (kBlockM / 8);
+    const int t = 8 * (e % (kBlockM / 8));
+    if (m0 + t < N)
+      *reinterpret_cast<uint4*>(ob + static_cast<long long>(ch) * N + m0 + t) =
+          *reinterpret_cast<const uint4*>(sQ + (t >> 6) * kTileElems + swz(ch, t & 63));
   }
 }
 
@@ -273,6 +306,10 @@ flash_fwd_t_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 }  // namespace mhmr
 
+// Returns cudaErrorInvalidValue for inputs the kernel does not take (the
+// Python wrapper checks the same and raises first): Dh != 64, kv_len outside
+// [1, N]; in bf16, a token stride other than 1, or a token count, stride or
+// base pointer that is not 16-byte aligned.
 extern "C" int mhmr_flash_fwd_t(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int B, int H, int Dh,
                                 int N, int kv_len, long long stride_b,
@@ -285,8 +322,13 @@ extern "C" int mhmr_flash_fwd_t(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
+    const void* ptrs[] = {q, k, v, out, lse};
+    if (!rows16(B, H, N, st, ptrs, 5)) return cudaErrorInvalidValue;
+    static int smem_allowed[kMaxDevices] = {};
+    const cudaError_t err = allow_smem(flash_fwd_t_bf16_kernel, kSmemBf16, smem_allowed);
+    if (err != cudaSuccess) return err;
     dim3 grid((N + kBlockM - 1) / kBlockM, B * H);
-    flash_fwd_t_bf16_kernel<<<grid, kThreads, 0, s>>>(
+    flash_fwd_t_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(
         static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
         static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
         static_cast<float*>(lse), H, N, kv_len, st, scale_log2);

@@ -9,7 +9,15 @@ changes outside tests.
     and v as ``[B, H, Dh, N]`` views with no copy, the operand layout of the
     flash kernel K1 (ops/attention.py), and the block LayerNorms reduce over
     the channel dim with K2 (ops/norm.py): K1 once and K2 twice per block.
-    Dense layers are plain ``torch.baddbmm``.
+    Dense layers are plain ``torch.baddbmm``. The stream is pre-padded once
+    with zero tokens to ``padded_len`` (a multiple of 8: 2,312, 4,104
+    and 8,472 tokens at 672, 896 and 1288 pixels), so that every channel
+    row starts 16-byte aligned: the GEMMs get cuBLAS's aligned kernels and
+    K1/K3 their 16-byte asynchronous copies. ``kv_len`` (the true token
+    count) goes down to the attention, which masks keys at or past it; all
+    else is per token, so the pad tokens (finite: LayerNorm of a zero token
+    is its bias) never reach a real one, and the pad is dropped before the
+    final norm.
   * standard (``Block``, ``tp_mode="ring"``): the stream runs as
     ``[B, N, D]``. The qkv projection is reshaped to a packed
     ``[B, N, 3, H, Dh]`` whose slices are K5's operands, K5 writes the
@@ -25,8 +33,9 @@ checkpoints) and draw the same seeded init in the same order.
 Precision follows the JAX package: matmuls and the stream in
 ``dtype`` (bf16 by default), LayerNorm statistics in fp32, GELU exact (erf)
 in fp32 and tanh-approximate in bf16, and an fp32 final LayerNorm.
-The JAX stream pre-pad is a TPU tiling choice and is left out; the kernel
-masks its ragged tail itself.
+The JAX stream pre-pad (``models/vit.py:378-398, 414-415``) is ported at
+the port's own length: the JAX length ``transposed_padded_len`` and its 5 %
+overhead gate are TPU tiling and are not ported.
 
 Training: the attention backward is K3 (the standard stream copies into its
 channels-major layout) and the LayerNorm backward analytic torch ops.
@@ -46,7 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from multihmr_tpu_torch.config import ViTConfig
-from multihmr_tpu_torch.ops.attention import attention_qkv, flash_attention_qkv_t
+from multihmr_tpu_torch.ops.attention import attention_qkv, flash_attention_qkv_t, padded_len
 from multihmr_tpu_torch.ops.norm import layernorm_cm
 
 
@@ -110,11 +119,11 @@ class TAttention(nn.Module):
         self.qkv = TLinear(dim, 3 * dim)
         self.proj = TLinear(dim, dim)
 
-    def forward(self, x):  # [B, D, N]
+    def forward(self, x, kv_len=None):  # [B, D, N]; tokens >= kv_len are pad
         B, D, N = x.shape
         h = self.num_heads
         qkv = self.qkv(x).reshape(B, 3, h, D // h, N)  # a view: token dim untouched
-        out = flash_attention_qkv_t(qkv)  # [B, h, Dh, N]
+        out = flash_attention_qkv_t(qkv, kv_len=kv_len)  # [B, h, Dh, N]
         return self.proj(out.reshape(B, D, N))
 
 
@@ -140,10 +149,10 @@ class TBlock(nn.Module):
         self.mlp = TMlp(d, int(d * cfg.mlp_ratio))
         self.ls2 = TLayerScale(d, cfg.layerscale_init)
 
-    def forward(self, x):
+    def forward(self, x, kv_len=None):
         # one expression per branch: each temporary is freed as soon as it
         # is consumed, so the allocator reuses its block for the next one
-        x = x + self.ls1(self.attn(self.norm1(x, x.dtype)))
+        x = x + self.ls1(self.attn(self.norm1(x, x.dtype), kv_len))
         return x + self.ls2(self._mlp(self.norm2(x, x.dtype)))
 
     def _mlp(self, y):
@@ -222,12 +231,12 @@ class Block(nn.Module):
         return _maybe_checkpoint(self.mlp, y) if self.remat_mlp else self.mlp(y)
 
 
-def _maybe_checkpoint(fn, x):
-    """``fn(x)``, its activations recomputed in the backward pass when a
+def _maybe_checkpoint(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when a
     graph is being recorded."""
     if not torch.is_grad_enabled():
-        return fn(x)
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class DINOv2ViT(nn.Module):
@@ -288,12 +297,16 @@ class DINOv2ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, 1, -1)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dt)
 
-        if self.transposed:
-            tokens = tokens.transpose(1, 2).contiguous()  # [B, D, 1+N] channels-major
+        args = ()
+        if self.transposed:  # [B, D, padded_len(1+N)] channels-major, zero pad tokens
+            n_tok = 1 + n
+            tokens = F.pad(tokens.transpose(1, 2), (0, padded_len(n_tok) - n_tok)).contiguous()
+            args = (n_tok,)
         for blk in self.blocks:
-            tokens = _maybe_checkpoint(blk, tokens) if self.remat_block else blk(tokens)
+            tokens = (_maybe_checkpoint(blk, tokens, *args) if self.remat_block
+                      else blk(tokens, *args))
         if self.transposed:
-            tokens = tokens.transpose(1, 2)  # [B, 1+N, D]
+            tokens = tokens[:, :, :n_tok].transpose(1, 2)  # drop the pad: [B, 1+N, D]
 
         tokens = F.layer_norm(tokens.float(), (tokens.shape[-1],),
                               self.norm.weight.float(), self.norm.bias.float(), 1e-6)

@@ -13,7 +13,8 @@ Counterpart of ``multihmr_tpu/ops/attention.py``, in two layouts:
     ``[B, H, N, Dh]``, views of the packed ``[B, N, 3, H, Dh]`` projection of
     the standard ``[B, N, D]`` stream. The forward launches
     ``csrc/flash_fwd_std.cu`` (K5); the backward copies into K3's layout, as
-    the JAX package's ``_flash_bwd_impl`` does. ``attention_qkv`` is the one
+    the JAX package's ``_flash_bwd_impl`` does, padded to a multiple of 8
+    tokens. ``attention_qkv`` is the one
     entry the standard-stream ViT calls; the JAX package's per-tensor entries
     (``flash_attention``, ``flash_attention_trainable``,
     ``flash_attention_merged``, ``multi_head_attention``,
@@ -21,10 +22,12 @@ Counterpart of ``multihmr_tpu/ops/attention.py``, in two layouts:
 
 On a CUDA tensor each entry launches its kernel; on a CPU tensor it runs the
 plain version. There is no fallback: a CUDA tensor a kernel does not take
-raises. The JAX standard entries' TPU tiling arguments (``block_q``,
-``block_kv``, ``pad_to``, ``interpret``) and the ``N >= 1024`` flash
-threshold of its dispatchers are TPU tuning and are not ported: on CUDA
-``attention_qkv`` takes K5 at every N.
+raises. The bf16 K1 and K3 take only 16-byte token rows (a token count and
+strides that are multiples of 8: :func:`padded_len`, :func:`_check_rows16`);
+their fp32 paths, K4a and K4b take any strides. The JAX standard entries'
+TPU tiling arguments (``block_q``, ``block_kv``, ``pad_to``, ``interpret``)
+and the ``N >= 1024`` flash threshold of its dispatchers are TPU tuning and
+are not ported: on CUDA ``attention_qkv`` takes K5 at every N.
 """
 
 from __future__ import annotations
@@ -113,8 +116,37 @@ def _check_qkv(q, k, v, kv_len, what):
         raise ValueError(f"{what}: kv_len={kv_len} outside [1, {N}]")
 
 
+def padded_len(n_tok: int) -> int:
+    """The token count the bf16 K1 and K3 take for ``n_tok`` true tokens:
+    rounded up to a multiple of 8 (16 bytes of bf16 per channel row)."""
+    return -(-n_tok // 8) * 8
+
+
+def _check_rows16(what, **tensors):
+    """The bf16 K1 and K3 copy their tiles as 16-byte rows of 8 tokens
+    (``cp.async``): each ``[B, H, Dh, N]`` operand needs token stride 1, a
+    token count and channel, head and batch strides that are multiples of 8,
+    and a 16-byte aligned base pointer; ``[B, H, N]`` fp32 rows (lse, D) a
+    16-byte aligned base. Nothing pads or copies here: the channels-major ViT
+    pre-pads its stream (models/vit.py), the standard stream's backward
+    copies into a padded buffer."""
+    for name, t in tensors.items():
+        bad = t.data_ptr() % 16 != 0
+        if t.dim() == 4:
+            bad |= (t.stride(-1) != 1 or t.shape[-1] % 8 != 0
+                    or any(s % 8 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+        if bad:
+            raise ValueError(
+                f"{what}: bf16 K1/K3 copy 16-byte token rows, so {name} needs token stride 1, "
+                f"a token count and channel/head/batch strides that are multiples of 8 and a "
+                f"16-byte aligned base (pre-pad the stream to a multiple of 8 tokens); got shape "
+                f"{tuple(t.shape)}, strides {t.stride()}, base {t.data_ptr() % 16} mod 16")
+
+
 def _flash_fwd_t_cuda(q, k, v, scale, kv_len):
     _check_qkv(q, k, v, kv_len, "_flash_fwd_impl_t")
+    if q.dtype == torch.bfloat16:
+        _check_rows16("_flash_fwd_impl_t", q=q, k=k, v=v)
     B, H, Dh, N = q.shape
     out = torch.empty((B, H, Dh, N), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
@@ -173,7 +205,10 @@ def _flash_bwd_t_cuda(kernel, q, k, v, do, lse, dd, scale, kv_len, dq, dk, dv):
     (ob, oh), = strides
     dq_acc = None
     if mode == 0 and q.dtype == torch.bfloat16:  # K3 adds scaled fp32 partials here
-        dq_acc = torch.zeros((B, H, Dh, N), dtype=torch.float32, device=q.device)
+        _check_rows16(kernel, q=q, k=k, v=v, dO=do, dq=dq, dk=dk, dv=dv, lse=lse, D=dd)
+        # by 64-query tile, rows padded to 68: one bulk add per partial
+        dq_acc = torch.zeros((B, H, -(-N // 64), Dh, 68), dtype=torch.float32,
+                             device=q.device)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     err = cuda_lib.library().mhmr_flash_bwd_t(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -184,7 +219,7 @@ def _flash_bwd_t_cuda(kernel, q, k, v, do, lse, dd, scale, kv_len, dq, dk, dv):
     cuda_lib.check(err, kernel)
     cuda_lib.LAUNCHES[kernel] += 1
     if dq_acc is not None:
-        dq.copy_(dq_acc)
+        dq.copy_(dq_acc[..., :64].permute(0, 1, 3, 2, 4).reshape(B, H, Dh, -1)[..., :N])
 
 
 def _flash_bwd_impl_t(q, k, v, o, lse, do, scale=None, kv_len=None, fused=True,
@@ -342,6 +377,15 @@ def _unpack(qkv):
     return qkv.permute(2, 0, 3, 1, 4).unbind(0)
 
 
+def _padded_copy(t, n_pad):
+    """A contiguous copy of ``t`` with its last dim zero-padded to ``n_pad``."""
+    n = t.shape[-1]
+    out = t.new_empty(t.shape[:-1] + (n_pad,))
+    out[..., :n].copy_(t)
+    out[..., n:].zero_()
+    return out
+
+
 class _FlashAttentionQKV(torch.autograd.Function):
     """Packed qkv ``[B, N, 3, H, Dh]`` (the standard stream's projection) →
     heads-merged out ``[B, N, H * Dh]``. The backward (as the JAX
@@ -360,12 +404,19 @@ class _FlashAttentionQKV(torch.autograd.Function):
     def backward(ctx, g):
         qkv, out, lse = ctx.saved_tensors
         B, N, _, H, Dh = qkv.shape
-        qkv_t = qkv.permute(0, 2, 3, 4, 1).contiguous()  # [B, 3, H, Dh, N]
-        o_t = out.transpose(-1, -2).contiguous()
-        do_t = g.reshape(B, N, H, Dh).permute(0, 2, 3, 1).contiguous()
+        # K3's layout, N rounded up to a multiple of 8 tokens (its 16-byte
+        # rows) with kv_len = N. The pad queries have zero q and dO (so
+        # D = 0) and lse 0, which keeps p = exp(0 - 0) finite: they add
+        # nothing to dk or dv. The pad keys' dk, dv and the pad queries' dq
+        # are sliced off.
+        n_pad = padded_len(N)
+        qkv_t = _padded_copy(qkv.permute(0, 2, 3, 4, 1), n_pad)  # [B, 3, H, Dh, n_pad]
+        o_t = _padded_copy(out.transpose(-1, -2), n_pad)
+        do_t = _padded_copy(g.reshape(B, N, H, Dh).permute(0, 2, 3, 1), n_pad)
         dqkv_t = torch.empty_like(qkv_t)
-        _flash_bwd_impl_t(*qkv_t.unbind(1), o_t, lse, do_t, ctx.scale, out=dqkv_t.unbind(1))
-        return dqkv_t.permute(0, 4, 1, 2, 3).contiguous(), None
+        _flash_bwd_impl_t(*qkv_t.unbind(1), o_t, _padded_copy(lse, n_pad), do_t, ctx.scale,
+                          kv_len=N, out=dqkv_t.unbind(1))
+        return dqkv_t[..., :N].permute(0, 4, 1, 2, 3).contiguous(), None
 
 
 def flash_attention_qkv(qkv, scale=None):

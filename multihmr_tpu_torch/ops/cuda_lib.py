@@ -12,11 +12,16 @@ machine without ``nvcc``.
 
 Every wrapper adds one to :data:`LAUNCHES` where it launches its kernel and
 nowhere else, so a run can show that its path went through the kernels.
+
+:func:`build_variants` and :func:`use_variant` build textual variants of one
+source (a broken copy that a check must reject, or a kernel with part of its
+work removed, to time) and swap one in for its C entry.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -24,6 +29,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -144,3 +150,51 @@ def check(err: int, what: str) -> None:
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def build_variants(source: str, table: dict, tmp) -> dict:
+    """Start one nvcc per variant of ``csrc/<source>``: its text with the
+    entry's ``[(old, new), ...]`` substitutions (each ``old`` found exactly
+    once), compiled alone beside a copy of common.cuh in the directory
+    ``tmp``, all at once. Returns {variant: (library path, nvcc process)}."""
+    src = (CSRC / source).read_text()
+    builds = {}
+    for i, (name, subs) in enumerate(table.items()):
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise ValueError(f"variant {name!r}: {old!r} is not once in {source}")
+            text = text.replace(old, new)
+        d = Path(tmp) / f"{Path(source).stem}_{i}"
+        d.mkdir()
+        shutil.copy(CSRC / "common.cuh", d)
+        (d / source).write_text(text)
+        builds[name] = (d / "lib.so", subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return builds
+
+
+@contextlib.contextmanager
+def use_variant(name: str, build: tuple, entry: str):
+    """Inside the block the wrappers call the variant library's C entry
+    ``entry`` (``build`` from :func:`build_variants`; it is waited for here)
+    and the sound library's for everything else. Launches count as usual."""
+    global library
+    so, proc = build
+    if proc.returncode is None:
+        proc.log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"variant {name!r} did not build:\n{proc.log}")
+    sound = library()
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes, fn.restype = getattr(sound, entry).argtypes, getattr(sound, entry).restype
+    # the sound library's bound entries (library() set their argtypes)
+    shim = types.SimpleNamespace(**{k: f for k, f in vars(sound).items() if k.startswith("mhmr_")})
+    setattr(shim, entry, fn)
+    sound_library = library
+    library = lambda: shim  # noqa: E731
+    try:
+        yield
+    finally:
+        library = sound_library

@@ -76,3 +76,22 @@ def test_other_devices_raise():
     q = torch.empty((1, 2, 64, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tatt._flash_fwd_impl_t(q, q, q)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("aligned", True), ("odd token count", False), ("odd channel stride", False),
+    ("token stride 2", False), ("base not 16-byte aligned", False)])
+def test_rows16_rule(case, ok):
+    """The bf16 K1/K3 alignment rule (checked before a CUDA launch; the
+    check itself reads only shapes, strides and pointers)."""
+    buf = torch.zeros((2, 3, 4, 64, 112), dtype=torch.bfloat16)
+    q = {"aligned": buf[:, 0, ..., :104],
+         "odd token count": buf[:, 0, ..., :97],
+         "odd channel stride": torch.zeros((2, 4, 64, 105), dtype=torch.bfloat16)[..., :104],
+         "token stride 2": buf[:, 0, ..., ::2],
+         "base not 16-byte aligned": buf[:, 0, ..., 1:105]}[case]
+    if ok:
+        tatt._check_rows16("K1", q=q)
+    else:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tatt._check_rows16("K1", q=q)

@@ -18,9 +18,14 @@ tolerances. LayerNorm: fp32 out 1e-5; bf16 out one bf16 ulp of |y| <= 8
 
 Flash backward (K3, K4a + K4b) against the plain fp32 backward on the same
 inputs, each gradient's max error relative to its largest magnitude: fp32
-1e-4 (fp32 sums in other orders, dq's by atomics in a varying order); bf16
-1e-2 (the kernels round p and ds to bf16 before their products, as the TPU
-kernels do, and the outputs to bf16: 2^-9 relative each).
+1e-4 (fp32 sums in other orders, dq's by atomic adds in a varying order);
+bf16 1e-2 (the kernels round p and ds to bf16 before their products, as the
+TPU kernels do, and the outputs to bf16: 2^-9 relative each).
+
+The bf16 K1 and K3 take only 16-byte token rows (a token count and strides
+that are multiples of 8): their cases run at the ViT's pre-padded lengths
+with junk past kv_len, (104, 97), (2312, 2305) and (640, 577); the fp32
+paths and K4a/K4b take any stride and keep odd token counts.
 """
 
 import numpy as np
@@ -59,8 +64,12 @@ def _check_fwd(out, lse, ref_out, ref_lse):
         assert _max_err(lse, ref_lse) <= 5e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,kv_len", [(97, None), (2305, None), (640, 577)])
+# (dtype, N, kv_len): bf16 on pre-padded lengths, fp32 at odd ones
+FLASH_CASES = ([(torch.bfloat16, n, kv) for n, kv in ((104, 97), (2312, 2305), (640, 577))]
+               + [(torch.float32, n, kv) for n, kv in ((97, None), (2305, None), (640, 577))])
+
+
+@pytest.mark.parametrize("dtype,n,kv_len", FLASH_CASES)
 def test_flash_attention_kernel(dev, dtype, n, kv_len):
     g = torch.Generator(device=dev).manual_seed(0)
     qkv = torch.randn((2, 3 * 4 * 64, n), device=dev, generator=g).to(dtype)
@@ -75,6 +84,22 @@ def test_flash_attention_kernel(dev, dtype, n, kv_len):
     assert out.dtype == dtype and out.shape == q.shape and lse.shape == (2, 4, n)
     lim = n if kv_len is None else kv_len
     _check_fwd(out[..., :lim], lse[..., :lim], ref_out[..., :lim], ref_lse[..., :lim])
+
+
+@pytest.mark.parametrize("entry", ["K1", "K3"])
+def test_bf16_flash_rejects_unaligned_rows(dev, entry):
+    """bf16 K1 and K3 copy 16-byte token rows: an odd channel stride (a view
+    of a [.., 64, 105] buffer) raises, naming the rule; nothing pads."""
+    buf = torch.zeros((1, 3, 2, 64, 105), device=dev, dtype=torch.bfloat16)
+    q, k, v = buf[..., :104].unbind(1)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        if entry == "K1":
+            attention._flash_fwd_impl_t(q, k, v)
+        else:
+            lse = torch.zeros((1, 2, 104), device=dev)
+            attention._flash_bwd_impl_t(q, k, v, q, lse, q)
+    assert not cuda_lib.LAUNCHES
 
 
 def test_flash_attention_rejects(dev):
@@ -193,35 +218,38 @@ def _rel(a, b):
     return _max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,kv_len", [(97, None), (640, 577), (2305, None)])
+# K3 and K4a + K4b on FLASH_CASES; K4a + K4b alone in bf16 at odd lengths
+@pytest.mark.parametrize("dtype,n,kv_len", FLASH_CASES + [
+    (torch.bfloat16, n, kv) for n, kv in ((97, None), (2305, None))])
 def test_flash_backward_kernels(dev, dtype, n, kv_len):
     q, k, v, o, lse, do = _bwd_inputs(dev, dtype, n, kv_len)
     ref = attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=kv_len)
+    with_k3 = dtype == torch.float32 or n % 8 == 0
     cuda_lib.reset_launches()
-    fused = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=True)
-    two = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=False)
+    runs = [attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=False)]
+    if with_k3:
+        runs.append(attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=True))
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD] == 1
+    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD] == int(with_k3)
     assert cuda_lib.LAUNCHES[attention.KERNEL_BWD_DQ] == 1
     assert cuda_lib.LAUNCHES[attention.KERNEL_BWD_DKV] == 1
-    for name, a, b, r in zip("qkv", fused, two, ref):
-        assert a.dtype == dtype and a.shape == q.shape, name
-        assert _rel(a, r) <= BWD_TOL[dtype], (name, _rel(a, r))
-        assert _rel(b, r) <= BWD_TOL[dtype], (name, _rel(b, r))
-    if kv_len is not None:  # keys past kv_len: exact zeros
-        for t in fused[1:] + two[1:]:
-            assert not t[..., kv_len:].any()
+    for grads in runs:
+        for name, a, r in zip("qkv", grads, ref):
+            assert a.dtype == dtype and a.shape == q.shape, name
+            assert _rel(a, r) <= BWD_TOL[dtype], (name, _rel(a, r))
+        if kv_len is not None:  # keys past kv_len: exact zeros
+            for t in grads[1:]:
+                assert not t[..., kv_len:].any()
 
 
 def test_flash_backward_into_packed_gradient(dev):
-    q, k, v, o, lse, do = _bwd_inputs(dev, torch.bfloat16, 300, None)
+    q, k, v, o, lse, do = _bwd_inputs(dev, torch.bfloat16, 304, None)
     packed = torch.empty((2, 3) + q.shape[1:], dtype=q.dtype, device=dev)
     out = attention._flash_bwd_impl_t(q, k, v, o, lse, do, out=packed.unbind(1))
     want = attention._flash_bwd_impl_t(q, k, v, o, lse, do)
     for a, b, c in zip(out, packed.unbind(1), want):
         assert a.data_ptr() == b.data_ptr()
-        # dk, dv equal; dq may differ by a bf16 ulp (atomics in another order)
+        # dk, dv equal; dq may differ by a bf16 ulp (atomic adds in another order)
         assert _rel(b, c) <= BWD_TOL[torch.bfloat16]
 
 

@@ -21,6 +21,12 @@ channels-major step.
 The two streams of the port on the same seeded weights: fp32 outputs within
 1e-5 relative (the same math in other summation orders); bf16 tokens within
 2e-2 relative L2.
+
+The standard stream's attention backward copies q, k, v, o and dO into K3's
+channels-major layout padded to a multiple of 8 tokens (``kv_len`` = N): its
+forward and gradients equal ``flash_bwd_reference_t`` on the unpadded
+tensors within 1e-5 relative (fp32; the pad keys add exact zeros to the
+softmax sums, the pad queries zero dO).
 """
 
 import numpy as np
@@ -42,6 +48,7 @@ from multihmr_tpu_torch.config import ViTConfig
 from multihmr_tpu_torch.io.convert import params_from_jax
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
 from multihmr_tpu_torch.models.vit import Block, DINOv2ViT, TBlock
+from multihmr_tpu_torch.ops import attention as tatt
 from multihmr_tpu_torch.train import trainer as ttrainer
 from tests.test_checkpoint import make_reference_state_dict
 from tests.test_torch_model import TOLS, _rel_err, _tiny_cfg
@@ -181,3 +188,29 @@ def test_ring_train_step_matches_jax():
         assert _rel(terms[k].numpy(), j_terms[k]) <= 1e-4, k
     for name, p in net.named_parameters():
         assert _rel(p.grad.numpy(), j_grads[name].numpy()) <= 2e-3, name
+
+
+@pytest.mark.parametrize("n,n_pad", [(37, 40), (40, 40)])
+def test_standard_backward_on_padded_copy(rng, monkeypatch, n, n_pad):
+    B, H, Dh = 2, 2, 64
+    qkv = torch.from_numpy(rng.normal(size=(B, n, 3, H, Dh)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, n, H * Dh)).astype(np.float32))
+    seen = []
+    bwd = tatt._flash_bwd_impl_t
+
+    def spy(q, *args, kv_len=None, **kw):
+        seen.append((q.shape[-1], kv_len))
+        return bwd(q, *args, kv_len=kv_len, **kw)
+
+    monkeypatch.setattr(tatt, "_flash_bwd_impl_t", spy)
+    a = qkv.clone().requires_grad_()
+    out = tatt.flash_attention_qkv(a)
+    out.backward(g)
+    assert seen == [(n_pad, n)]
+    q, k, v = (t.permute(0, 2, 3, 1) for t in qkv.unbind(2))  # [B, H, Dh, N]
+    o, lse = tatt.mha_reference_t(q, k, v)
+    assert _rel(out.detach().numpy(), o.permute(0, 3, 1, 2).reshape(B, n, H * Dh).numpy()) <= 1e-5
+    do = g.reshape(B, n, H, Dh).permute(0, 2, 3, 1)
+    want = tatt.flash_bwd_reference_t(q, k, v, o, lse, do)
+    for i, w in enumerate(want):
+        assert _rel(a.grad[:, :, i].permute(0, 2, 3, 1).numpy(), w.numpy()) <= 1e-5, i
