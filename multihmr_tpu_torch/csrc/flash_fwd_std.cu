@@ -12,35 +12,54 @@
 // (tp_mode="ring") runs once per block.
 //
 // Bound: compute. At 896_L (H = 16, N = 4097, Dh = 64) one call does
-// 4 * N^2 * Dh * H = 68.7 GFLOP on 4 * 8.4 MB of bf16 operands and output,
-// some two thousand flops per byte, so the tensor cores are the limit, and
-// the N^2 score matrix must never reach device memory.
+// 4 * N^2 * Dh * H = 68.7 GFLOP (0.069 ms at 989 TFLOP/s) on 4 * 8.4 MB of
+// bf16 operands and output, some two thousand flops per byte, so the tensor
+// cores are the limit, and the N^2 score matrix must never reach device
+// memory.
 //
-// Design (bf16): one block of eight warps per (batch*head, 128-query tile);
-// each warp owns 16 query rows, and all eight share each staged k/v tile.
-// Every token's 64 channels are one contiguous 128-byte row, so the q, k and
-// v tiles are staged [token][channel] in shared memory with 16-byte vector
-// loads: eight threads read one row, whatever the token stride (6 KB on the
-// [B, N, 3, H, 64] projection output). The rows are padded to 144 bytes so
-// the 8 rows an ldmatrix phase reads fall in distinct banks. q ([query]
-// [channel]) and k ([key][channel]) are already in the row/col order of the
-// mma.sync.m16n8k16 A and B operands and go through plain ldmatrix; v
-// ([key][channel]) is the B operand of P.V with keys as the depth and goes
-// through ldmatrix.trans. The q tile stays in registers as A fragments for
-// the whole kv walk. Scores and the output accumulate in fp32 registers; the
-// online softmax keeps a running max and sum per row in fp32, in exp2 units
-// with scale * log2(e) folded in. The score fragments are re-packed to bf16
-// in registers as the A operand of P.V, so P never touches shared memory.
-// Keys at or past N are masked to -inf in the last tile and staged as zeros.
-// The output tile goes through shared memory: with channel stride 1 (the
-// [B, N, H, 64] merged layout or [B, H, N, 64]) each row is stored with
-// 16-byte vector stores; any other output strides (e.g. [B, H, 64, N]) are
-// stored element by element, coalesced along tokens when their stride is 1.
+// Design (bf16), FA3's shape (hopper-kernels guide section 1). One block of
+// three warpgroups per (batch*head, 128-query tile):
+//  * warpgroup 0 is the producer: it gives its registers to the consumers
+//    (setmaxnreg) and one thread issues every copy by TMA. Each of q, k and v
+//    is a tensor map over its own strided view, dims (64 channels, N, H, B)
+//    with the view's byte strides, boxes of 64 channels x 64 tokens with the
+//    128-byte swizzle (encoded on the host per call). Every token row of a
+//    head is 128 contiguous bytes; rows past N come back as zeros, which
+//    handles the ragged tail (4,097 = 64 * 64 + 1). The two q tiles are
+//    loaded once; k/v tile pairs go through a ring of kStages stages with
+//    full and empty mbarriers;
+//  * warpgroups 1 and 2 are the consumers, 64 queries each. Products are
+//    wgmma m64n64k16 with fp32 accumulators: S = q k^T with A = the q tile
+//    [query][channel] and B = the k tile [key][channel], both from shared
+//    memory and K-major (q stays in shared memory for the whole walk: a
+//    loop-invariant register A fragment is not kept live by ptxas); O += P v
+//    with A = P re-packed to bf16 in registers from S's accumulators (as the
+//    TPU kernel rounds it) and B = the v tile [key][channel], MN-major;
+//  * overlap, as FA3 within a warpgroup: tile j's S product is issued with
+//    tile j-1's P.V behind it, and tile j's softmax (SFU ex2.approx, scale *
+//    log2(e) folded in) runs while P.V is on the tensor cores; the output is
+//    rescaled once P.V has been waited for, and only then is the stage of
+//    tile j-1 released to the producer. Between the warpgroups, as FA3's
+//    ping-pong: they take turns to issue their products (two named
+//    barriers), so that one's softmax runs while the other's products are on
+//    the tensor cores.
+// The online softmax keeps a running max and sum per row in fp32, in exp2
+// units. Keys at or past N are masked to -inf in the last tile (their k and
+// v rows are zeros). The output tile goes through shared memory (the
+// warpgroup's own q tile, swizzled): with channel stride 1 and 16-byte
+// aligned strides (the [B, N, H, 64] merged layout or [B, H, N, 64]) each
+// row is stored with 16-byte vector stores; any other output strides (e.g.
+// [B, H, 64, N]) element by element, coalesced along tokens when their
+// stride is 1.
 //
 // Design (fp32, the --amp 0 and precision-check mode): one thread per query
 // row, the scaled q row and the output row in registers, 64-key k/v tiles
 // staged [key][channel] with 16-byte loads and read as broadcasts, and the
 // same online softmax on chunks of 16 keys, in plain fp32 FMAs (no TF32).
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled (no libcuda link)
+
+#include <chrono>
+
 #include "common.cuh"
 
 namespace mhmr {
@@ -54,63 +73,131 @@ struct StdStrides {
 };
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kBlockM = 128;  // query rows per block (8 warps x 16)
+constexpr int kBlockM = 128;  // query rows per block (2 consumer warpgroups x 64)
 constexpr int kBlockN = 64;   // keys per kv tile
-constexpr int kThreads = 256;
-constexpr int kLd = kDh + 8;  // smem row stride (elements) of every tile: 144 B
+constexpr int kThreads = 384;  // warpgroup 0: producer; 1 and 2: consumers
+constexpr int kStages = 4;     // k/v tile pairs in the ring
+constexpr int kTileBytes = kTileElems * 2;  // one [64 token][64 channel] bf16 tile
+// two q tiles, the k/v ring, and slack to align the base to 1024 bytes
+constexpr int kSmemBf16 = (2 + 2 * kStages) * kTileBytes + 1024;
 
-// [kRows tokens][64 channels] bf16 tile starting at token n0 into shared
-// memory with row stride kLd, by kThreads threads; tokens >= lim -> 0.
-// Each thread moves 16-byte chunks: 8 per token row.
-template <int kRows>
-__device__ __forceinline__ void stage_rows(uint16_t* __restrict__ s,
-                                           const uint16_t* __restrict__ g,
-                                           long long sn, int n0, int lim,
-                                           int tid) {
+// S = q k^T for a warpgroup's 64 queries x 64 keys: k-step kk is 32 bytes
+// further along the rows of both K-major tiles
+__device__ __forceinline__ void s_product(float (&s)[8][4], const uint16_t* sQw,
+                                          const uint16_t* sK) {
 #pragma unroll
-  for (int i = 0; i < (kRows * 8) / kThreads; ++i) {
-    const int e = i * kThreads + tid;
-    const int r = e / 8;
-    const int c = e % 8;
-    const int n = n0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (n < lim) val = *reinterpret_cast<const uint4*>(g + n * sn + 8 * c);
-    *reinterpret_cast<uint4*>(s + r * kLd + 8 * c) = val;
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_ss<0, 0>(s, wgmma_desc(sQw + 16 * kk, 0, 1024),
+                             wgmma_desc(sK + 16 * kk, 0, 1024), kk > 0);
+}
+
+// O += P v for kv tile `tile`: P's accumulators of n-tiles 2kk, 2kk+1 are the
+// A fragment of k-step kk (keys 16kk..16kk+15); B = the v tile, MN-major,
+// k-step kk at row 16kk
+__device__ __forceinline__ void pv_product(float (&o)[8][4], const uint32_t (&pf)[4][4],
+                                           const uint16_t* sV, int tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16<1>(o, pf[kk], wgmma_desc(sV + 16 * kk * 64, 1024, 1024), 1);
+}
+
+// scale a tile's scores into log2 units (keys >= N to -inf), fold them into
+// the running max and sum of rows g (r = 0) and g + 8 (r = 1) and leave
+// p = 2^(s - max) in s; corr[r] is the factor for the output so far
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&row_max)[2],
+                                             float (&row_sum)[2], float (&corr)[2], int n0,
+                                             int N, int tq, float scale_log2) {
+  const bool tail = n0 + kBlockN > N;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = n0 + 8 * nt + 2 * tq + (i % 2);
+      s[nt][i] = (tail && key >= N) ? -INFINITY : s[nt][i] * scale_log2;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = row_max[r];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // mx is finite: every tile holds at least one key < N
+    corr[r] = fast_exp2(row_max[r] - mx);
+    row_max[r] = mx;
+    float sum = row_sum[r] * corr[r];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][2 * r] = fast_exp2(s[nt][2 * r] - mx);
+      s[nt][2 * r + 1] = fast_exp2(s[nt][2 * r + 1] - mx);
+      sum += s[nt][2 * r] + s[nt][2 * r + 1];
+    }
+    row_sum[r] = sum;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_std_bf16_kernel(const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v,
-                          uint16_t* __restrict__ out, float* __restrict__ lse,
-                          int H, int N, StdStrides st, StdStrides os,
-                          int vec_out, float scale_log2) {
-  __shared__ __align__(16) uint16_t sQ[kBlockM * kLd];
-  __shared__ __align__(16) uint16_t sK[kBlockN * kLd];
-  __shared__ __align__(16) uint16_t sV[kBlockN * kLd];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_std_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          uint16_t* __restrict__ out, float* __restrict__ lse, int H, int N,
+                          StdStrides os, int vec_out, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(align1024(smem_raw));  // 2 tiles
+  uint16_t* sKV = sQ + 2 * kTileElems;  // stage s: k tile 2s, v tile 2s + 1
+  __shared__ uint64_t bar_q, full[kStages], empty[kStages];
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int mi = lane / 8;  // which 8x8 matrix this lane addresses in ldmatrix.x4
-  const int mr = lane % 8;  // which row of it
-  const int g = lane / 4;   // mma group: rows g and g + 8
-  const int tq = lane % 4;  // thread in group: columns 2tq, 2tq + 1
   const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
   const int m0 = blockIdx.x * kBlockM;
-  const long long base = (bh / H) * st.b + (bh % H) * st.h;
+  const int n_tiles = (N + kBlockN - 1) / kBlockN;
 
-  stage_rows<kBlockM>(sQ, q + base, st.n, m0, N, tid);
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the tile's bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    fence_mbar_init();
+  }
   __syncthreads();
 
-  // q as A fragments (row = query, col = channel) from the [query][channel]
-  // tile: 4 k-steps of 16 channels
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldsm_x4(qf[ks], &sQ[(16 * warp + (mi % 2) * 8 + mr) * kLd + 16 * ks +
-                        (mi / 2) * 8]);
+  if (tid < 128) {  // ---- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      mbar_expect_tx(&bar_q, 2 * kTileBytes);
+      tma_load_4d(sQ, &map_q, &bar_q, 0, m0, h, b);
+      tma_load_4d(sQ + kTileElems, &map_q, &bar_q, 0, m0 + 64, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);  // round 0 passes at once
+        uint16_t* dst = sKV + 2 * st * kTileElems;
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load_4d(dst, &map_k, &full[st], 0, j * kBlockN, h, b);
+        tma_load_4d(dst + kTileElems, &map_v, &full[st], 0, j * kBlockN, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups 1 and 2: queries m0 + 64 * cw ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = tid / 128 - 1;
+  const int warp = (tid / 32) % 4;  // warp of the warpgroup: rows 16 * warp ..
+  const int lane = tid % 32;
+  const int g = lane / 4;   // accumulator rows g and g + 8
+  const int tq = lane % 4;  // accumulator columns 2tq, 2tq + 1
+  const uint16_t* sQw = sQ + cw * kTileElems;
+  // ping-pong: warpgroup cw issues its products between a wait at barrier
+  // 3 + cw and an arrive at the other's; warpgroup 0 goes first, and
+  // warpgroup 1 skips its last arrive, so both barriers end balanced
+  const auto my_turn = [&] { named_barrier<256>(3 + cw); };
+  const auto your_turn = [&](bool last) {
+    if (!(last && cw == 1)) named_barrier_arrive<256>(4 - cw);
+  };
+  if (cw == 1) named_barrier_arrive<256>(3);
 
   float o[8][4];
 #pragma unroll
@@ -119,90 +206,66 @@ flash_fwd_std_bf16_kernel(const uint16_t* __restrict__ q,
     for (int i = 0; i < 4; ++i) o[d][i] = 0.f;
   float row_max[2] = {-INFINITY, -INFINITY};  // log2 units
   float row_sum[2] = {0.f, 0.f};              // this thread's columns only
+  float corr[2];
+  float s[8][4];
+  uint32_t pf[4][4];
 
-  const int n_tiles = (N + kBlockN - 1) / kBlockN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kBlockN;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    stage_rows<kBlockN>(sK, k + base, st.n, n0, N, tid);
-    stage_rows<kBlockN>(sV, v + base, st.n, n0, N, tid);
-    __syncthreads();
+  // tile 0: S, softmax, P
+  mbar_wait(&bar_q, 0);
+  mbar_wait(&full[0], 0);
+  my_turn();
+  reg_fence(s);
+  wgmma_fence();
+  s_product(s, sQw, sKV);
+  wgmma_commit();
+  your_turn(false);
+  wgmma_wait<0>();
+  reg_fence(s);
+  softmax_tile(s, row_max, row_sum, corr, 0, N, tq, scale_log2);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) c_to_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
 
-    // S = q k^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys);
-    // k's [key][channel] tile is the B operand's [n][k] order: no .trans
-    float s[8][4];
+  for (int j = 1; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const int sp = (j - 1) % kStages;  // the stage of tile j - 1
+    mbar_wait(&full[st], (j / kStages) & 1);
+    my_turn();
+    reg_fence(s);
+    reg_fence(o);
+    reg_fence(pf);
+    wgmma_fence();
+    s_product(s, sQw, sKV + 2 * st * kTileElems);  // tile j's scores, with ...
+    wgmma_commit();
+    pv_product(o, pf, sKV + (2 * sp + 1) * kTileElems, j - 1);  // ... tile j - 1's P.V
+    wgmma_commit();
+    your_turn(false);
+    wgmma_wait<1>();  // S of tile j has landed; P.V runs on
+    reg_fence(s);
+    softmax_tile(s, row_max, row_sum, corr, j * kBlockN, N, tq, scale_log2);
+    wgmma_wait<0>();
+    reg_fence(o);
+    reg_fence(pf);
+    if (lane == 0) mbar_arrive(&empty[sp]);  // this warp is done with tile j - 1
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int d = 0; d < 8; ++d)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      for (int i = 0; i < 4; ++i) o[d][i] *= corr[i / 2];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, &sK[(8 * (2 * np + mi / 2) + mr) * kLd + 16 * ks +
-                       (mi % 2) * 8]);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
-      }
-    }
-
-    // scale into log2 units, mask keys >= N in the last tile
-    const bool tail = n0 + kBlockN > N;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = n0 + 8 * nt + 2 * tq + (i % 2);
-        s[nt][i] = (tail && key >= N) ? -INFINITY : s[nt][i] * scale_log2;
-      }
-
-    // online softmax; rows g (i = 0, 1) and g + 8 (i = 2, 3)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = row_max[r];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // mx is finite: every tile holds at least one key < N
-      const float corr = exp2f(row_max[r] - mx);
-      row_max[r] = mx;
-      float sum = row_sum[r] * corr;
-#pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        o[d][2 * r] *= corr;
-        o[d][2 * r + 1] *= corr;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - mx);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - mx);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      row_sum[r] = sum;
-    }
-
-    // O += P v: P's C fragments of n-tiles 2kk, 2kk+1 are the A fragment of
-    // k-step kk (16 keys); v's [key][channel] tile is the B operand's [k][n]
-    // order: .trans
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, &sV[(16 * kk + (mi % 2) * 8 + mr) * kLd +
-                             8 * (2 * dp + mi / 2)]);
-        mma_bf16(o[2 * dp], a, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) c_to_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
   }
+  my_turn();
+  reg_fence(o);
+  reg_fence(pf);
+  wgmma_fence();
+  pv_product(o, pf, sKV + (2 * ((n_tiles - 1) % kStages) + 1) * kTileElems, n_tiles - 1);
+  wgmma_commit();
+  your_turn(true);
+  wgmma_wait<0>();
+  reg_fence(o);
 
-  // epilogue: normalise, LSE, stage the [query][channel] tile in sQ
+  // epilogue: normalise, LSE, stage the [query][channel] tile swizzled in
+  // this warpgroup's q tile (its S products have completed)
+  const int q0 = m0 + 64 * cw;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -210,40 +273,88 @@ flash_fwd_std_bf16_kernel(const uint16_t* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
-    const int qrow = m0 + 16 * warp + g + 8 * r;
+    const int qrow = q0 + 16 * warp + g + 8 * r;
     if (tq == 0 && qrow < N)
       lse[static_cast<long long>(bh) * N + qrow] = (row_max[r] + log2f(l)) * kLn2;
   }
-  __syncthreads();  // all warps are past their reads of sQ
+  uint16_t* sO = sQ + cw * kTileElems;
 #pragma unroll
   for (int d = 0; d < 8; ++d)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = 16 * warp + g + 8 * r;
-      *reinterpret_cast<uint32_t*>(&sQ[row * kLd + 8 * d + 2 * tq]) =
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(&sO[swz(16 * warp + g + 8 * r, 8 * d + 2 * tq)]) =
           pack_bf16(o[d][2 * r] * inv[r], o[d][2 * r + 1] * inv[r]);
-    }
-  __syncthreads();
-  uint16_t* ob = out + (bh / H) * os.b + (bh % H) * os.h;
+  named_barrier<128>(1 + cw);
+  const int t = tid % 128;
+  uint16_t* ob = out + b * os.b + h * os.h;
   if (vec_out) {  // channel stride 1, 16-byte aligned rows
 #pragma unroll
-    for (int i = 0; i < (kBlockM * 8) / kThreads; ++i) {
-      const int e = i * kThreads + tid;
+    for (int i = 0; i < (64 * 8) / 128; ++i) {
+      const int e = i * 128 + t;
       const int r = e / 8;
       const int c = e % 8;
-      if (m0 + r < N)
-        *reinterpret_cast<uint4*>(ob + (m0 + r) * os.n + 8 * c) =
-            *reinterpret_cast<const uint4*>(&sQ[r * kLd + 8 * c]);
+      if (q0 + r < N)
+        *reinterpret_cast<uint4*>(ob + (q0 + r) * os.n + 8 * c) =
+            *reinterpret_cast<const uint4*>(&sO[swz(r, 8 * c)]);
     }
   } else {  // any strides, tokens fastest
 #pragma unroll 8
-    for (int i = 0; i < (kDh * kBlockM) / kThreads; ++i) {
-      const int e = i * kThreads + tid;
-      const int d = e / kBlockM;
-      const int t = e % kBlockM;
-      if (m0 + t < N) ob[d * os.d + (m0 + t) * os.n] = sQ[t * kLd + d];
+    for (int i = 0; i < (kDh * 64) / 128; ++i) {
+      const int e = i * 128 + t;
+      const int d = e / 64;
+      const int r = e % 64;
+      if (q0 + r < N) ob[d * os.d + (q0 + r) * os.n] = sO[swz(r, d)];
     }
   }
+}
+
+// ---- tensor maps (host)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, resolved through the runtime's entry-point query
+// (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [B, H, N, 64] bf16 view with element strides st (channel stride 1) as a
+// tensor map over dims (64, N, H, B), innermost first: boxes of 64 channels
+// x kBlockN tokens, 128-byte swizzle, rows past N read as zeros. The stride
+// of a size-1 dim is never used: it is given as 128 bytes
+cudaError_t encode_view(CUtensorMap* map, const void* base, int B, int H, int N,
+                        const StdStrides& st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {kDh, static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.n) * 2,
+                                 H == 1 ? 128u : static_cast<cuuint64_t>(st.h) * 2,
+                                 B == 1 ? 128u : static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {kDh, kBlockN, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -326,15 +437,13 @@ flash_fwd_std_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   lse[static_cast<long long>(bh) * N + row] = (m + log2f(l)) * kLn2;
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 }  // namespace mhmr
 
 // Returns cudaErrorInvalidValue for inputs the kernel does not take (the
 // Python wrapper checks the same and raises first): Dh != 64, a channel
 // stride other than 1, a q/k/v stride or base pointer that is not 16-byte
-// aligned.
+// aligned; cudaErrorNotSupported if cuTensorMapEncodeTiled cannot be resolved.
 extern "C" int mhmr_flash_fwd_std(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int B, int H, int Dh,
                                   int N, long long stride_b, long long stride_h,
@@ -345,21 +454,29 @@ extern "C" int mhmr_flash_fwd_std(const void* q, const void* k, const void* v,
   using namespace mhmr;
   if (Dh != kDh || N < 1 || stride_d != 1) return cudaErrorInvalidValue;
   const long long vec = dtype == kBFloat16 ? 8 : 4;  // elements per 16 bytes
-  if (stride_b % vec || stride_h % vec || stride_n % vec || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v))
+  if (stride_b % vec || stride_h % vec || stride_n % vec || !is_aligned16(q) ||
+      !is_aligned16(k) || !is_aligned16(v))
     return cudaErrorInvalidValue;
   const StdStrides st{stride_b, stride_h, stride_n, stride_d};
   const StdStrides os{out_b, out_h, out_n, out_d};
   const float scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
+    CUtensorMap maps[3];
+    const void* views[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      const cudaError_t err = encode_view(&maps[i], views[i], B, H, N, st);
+      if (err != cudaSuccess) return err;
+    }
+    static int smem_allowed[kMaxDevices] = {};
+    const cudaError_t err = allow_smem(flash_fwd_std_bf16_kernel, kSmemBf16, smem_allowed);
+    if (err != cudaSuccess) return err;
     const int vec_out = out_d == 1 && out_b % vec == 0 && out_h % vec == 0 &&
-                        out_n % vec == 0 && aligned16(out);
+                        out_n % vec == 0 && is_aligned16(out);
     dim3 grid((N + kBlockM - 1) / kBlockM, B * H);
-    flash_fwd_std_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
-        static_cast<float*>(lse), H, N, st, os, vec_out, scale_log2);
+    flash_fwd_std_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(
+        maps[0], maps[1], maps[2], static_cast<uint16_t*>(out), static_cast<float*>(lse), H, N,
+        os, vec_out, scale_log2);
   } else if (dtype == kFloat32) {
     dim3 grid((N + kRowsF32 - 1) / kRowsF32, B * H);
     flash_fwd_std_f32_kernel<<<grid, kRowsF32, 0, s>>>(
@@ -370,4 +487,22 @@ extern "C" int mhmr_flash_fwd_std(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// Host nanoseconds per bf16 K5 launch spent encoding its three tensor maps
+// (the mean over `iters` encodings of q, k and v); -1 if encoding fails.
+extern "C" double mhmr_flash_fwd_std_encode_ns(const void* q, const void* k, const void* v,
+                                               int B, int H, int N, long long stride_b,
+                                               long long stride_h, long long stride_n,
+                                               int iters) {
+  using namespace mhmr;
+  const StdStrides st{stride_b, stride_h, stride_n, 1};
+  const void* views[3] = {q, k, v};
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int it = 0; it < iters; ++it)
+    for (int i = 0; i < 3; ++i)
+      if (encode_view(&map, views[i], B, H, N, st) != cudaSuccess) return -1.0;
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;
 }

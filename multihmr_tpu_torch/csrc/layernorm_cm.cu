@@ -1,117 +1,211 @@
-// Channels-major LayerNorm forward: y[b, :, n] = LN(x[b, :, n]) over D.
+// Channels-major LayerNorm forward (K2): y[b, :, n] = LN(x[b, :, n]) over D.
 //
 // Replaces the Pallas TPU kernel multihmr_tpu/ops/norm.py::_ln_kernel
 // (called from _ln_fwd_pallas), which the ViT runs twice per block on its
 // [B, D, N] residual stream.
 //
-// Bound: memory. At the 896_L shape (D = 1024, N = 4097, bf16 in and out)
-// one call moves 2 * 1024 * 4097 * 2 B = 16.8 MB and does ~10 flops per
-// element, far below the H100's ~295 flop/byte ridge. The only lever is to
-// touch each byte once.
+// Bound: memory. At the 896_L shape (D = 1024, N = 4104 on the pre-padded
+// stream, bf16 in and out) one call moves 2 * 1024 * 4104 * 2 B = 16.8 MB,
+// 0.0050 ms at 3.35 TB/s, and does ~10 flops per element, far below the
+// H100's ~295 flop/byte ridge. The levers are to touch each byte once and to
+// keep enough bytes in flight: at ~0.7 us of latency the card needs ~18 KB
+// in flight per SM.
 //
-// Design: the reduction runs over D, whose stride is N. A block owns a tile
-// of 32 token columns; warp w walks channels w, w + 8, ... with its 32 lanes
-// on 32 neighbouring tokens, so every global load and store is coalesced
-// along N. Each value is read from device memory once into a [D, 32] slab
-// of dynamic shared memory (in the input dtype: 64 KB for bf16 at D = 1024),
-// the fp32 mean and then the fp32 variance of the centred values come from
-// that slab (two-pass, as the reference does), and the affine + cast pass
-// writes y once.
+// Design: every channel row is 16-byte aligned (N times the element size is
+// a multiple of 16 bytes, 16-byte aligned bases: ops/norm.py checks, and so
+// does the C entry). A block of D threads (D / 32 warps) owns a tile of 32
+// tokens across all D channels. A lane moves 16 bytes along tokens (8 bf16
+// or 4 fp32 tokens), so 4 (bf16) or 8 (fp32) lanes cover one channel's
+// tile row and a warp covers 8 or 4 channels per load instruction; warp w
+// owns channels 32w..32w+31, 4 (bf16) or 8 (fp32) loads per thread. Each
+// thread issues all of its loads before it uses any (at D = 1024: 64 KB in
+// flight per SM against the 4 KB of the 8-warp, 2-byte-load design before)
+// and keeps the values in registers: no shared-memory slab. The fp32
+// statistics are two-pass from registers, as the reference: the mean, then
+// the variance of the centred values; each is a shuffle reduction across
+// the lanes that share a token chunk, then a reduction across warps through
+// a [warps][32] buffer in shared memory. Each thread loads the scale and
+// bias of its own channels once, and writes y once with 16-byte stores in
+// the output dtype (8-byte stores for fp32 in and bf16 out: 4 tokens).
 #include "common.cuh"
 
 namespace mhmr {
 namespace {
 
-constexpr int kTok = 32;    // token columns per block (one per lane)
-constexpr int kGroups = 8;  // warps per block, interleaved over channels
+constexpr int kTok = 32;       // token columns per block
+constexpr int kMaxWarps = 32;  // D / 32 warps, D <= 1024
+
+// the lane layout of one 16-byte load of an In tile row
+template <typename In>
+struct Tile {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(typename In::T));  // tokens per lane
+  static constexpr int kLanesPerCh = kTok / kVec;  // lanes that cover one channel's tile row
+  static constexpr int kChPerLoad = 32 / kLanesPerCh;  // channels a warp covers per load
+  static constexpr int kLoads = 32 / kChPerLoad;  // loads per thread (32 channels per warp)
+};
+
+template <typename In>
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[Tile<In>::kVec]) {
+  if constexpr (sizeof(typename In::T) == 2) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+}
+
+// V tokens of y in the output dtype: 16-byte stores (one 8-byte store for
+// V = 4 in bf16)
+template <typename Out, int V>
+__device__ __forceinline__ void store(typename Out::T* p, const float (&v)[V]) {
+  if constexpr (sizeof(typename Out::T) == 2) {
+    if constexpr (V == 8) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    } else {
+      *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  }
+}
+
+// acc[t]: this thread's partial sum of token t of its chunk -> the sum over
+// all D channels, in every thread (two barriers)
+template <int V, int kLanesPerCh>
+__device__ __forceinline__ void block_sum(float (&acc)[V], float (*red)[kTok], float* tot,
+                                          int warp, int lane, int n_warps) {
+#pragma unroll
+  for (int m = kLanesPerCh; m < 32; m <<= 1)  // lanes of one token chunk
+#pragma unroll
+    for (int t = 0; t < V; ++t) acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], m);
+  if (lane < kLanesPerCh) {
+#pragma unroll
+    for (int t = 0; t < V; ++t) red[warp][lane * V + t] = acc[t];
+  }
+  __syncthreads();
+  if (threadIdx.x < kTok) {
+    float s = 0.f;
+    for (int w = 0; w < n_warps; ++w) s += red[w][threadIdx.x];
+    tot[threadIdx.x] = s;
+  }
+  __syncthreads();
+  const int chunk = lane % kLanesPerCh;
+#pragma unroll
+  for (int t = 0; t < V; ++t) acc[t] = tot[chunk * V + t];
+}
 
 template <typename In, typename Out>
-__global__ void __launch_bounds__(kTok * kGroups)
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
 layernorm_cm_kernel(const typename In::T* __restrict__ x,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
                     typename Out::T* __restrict__ y, int D, int N, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  typename In::T* slab = reinterpret_cast<typename In::T*>(smem_raw);  // [D][kTok]
-  __shared__ float part[kGroups][kTok];
-  __shared__ float stat[kTok];
+  using L = Tile<In>;
+  constexpr int V = L::kVec;
+  __shared__ float red[kMaxWarps][kTok];
+  __shared__ float tot[kTok];
 
-  const int tok = threadIdx.x % kTok;
-  const int grp = threadIdx.x / kTok;
-  const int n = blockIdx.x * kTok + tok;
-  const bool in_range = n < N;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  const int n = blockIdx.x * kTok + (lane % L::kLanesPerCh) * V;  // this lane's first token
+  const bool in_range = n < N;  // N % V == 0: all V tokens or none
+  const int c0 = 32 * warp + lane / L::kLanesPerCh;  // load i: channel c0 + i * kChPerLoad
   const long long plane = static_cast<long long>(blockIdx.y) * D * N;
-  const typename In::T* xb = x + plane;
-  typename Out::T* yb = y + plane;
 
-  // pass 1: global -> slab, partial sums
-  float s = 0.f;
-#pragma unroll 8  // keep several loads in flight per thread
-  for (int c = grp; c < D; c += kGroups) {
-    typename In::T v = in_range ? xb[static_cast<long long>(c) * N + n]
-                                : typename In::T(0);
-    slab[c * kTok + tok] = v;
-    s += In::load(v);
-  }
-  part[grp][tok] = s;
-  __syncthreads();
-  if (grp == 0) {
-    float t = 0.f;
+  // every load first: 16 bytes of one channel row each
+  uint4 raw[L::kLoads];
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i) t += part[i][tok];
-    stat[tok] = t / D;
+  for (int i = 0; i < L::kLoads; ++i) {
+    const long long off = plane + static_cast<long long>(c0 + i * L::kChPerLoad) * N + n;
+    raw[i] = in_range ? __ldg(reinterpret_cast<const uint4*>(x + off)) : make_uint4(0, 0, 0, 0);
   }
-  __syncthreads();
-  const float mu = stat[tok];
 
-  // pass 2: variance of the centred values (each thread re-reads only the
-  // slab entries it wrote, so no barrier is needed for the slab itself)
-  float q = 0.f;
-  for (int c = grp; c < D; c += kGroups) {
-    const float d = In::load(slab[c * kTok + tok]) - mu;
-    q += d * d;
-  }
-  part[grp][tok] = q;
-  __syncthreads();
-  if (grp == 0) {
-    float t = 0.f;
+  // mean
+  float acc[V], mu[V];
 #pragma unroll
-    for (int i = 0; i < kGroups; ++i) t += part[i][tok];
-    stat[tok] = rsqrtf(t / D + eps);
+  for (int t = 0; t < V; ++t) acc[t] = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::kLoads; ++i) {
+    float v[V];
+    unpack<In>(raw[i], v);
+#pragma unroll
+    for (int t = 0; t < V; ++t) acc[t] += v[t];
   }
-  __syncthreads();
-  const float rstd = stat[tok];
+  block_sum<V, L::kLanesPerCh>(acc, red, tot, warp, lane, n_warps);
+#pragma unroll
+  for (int t = 0; t < V; ++t) mu[t] = acc[t] / D;
 
-  // pass 3: normalise, affine, cast
+  // this thread's channels' scale and bias, once
+  float sc[L::kLoads], bi[L::kLoads];
+#pragma unroll
+  for (int i = 0; i < L::kLoads; ++i) {
+    sc[i] = __ldg(scale + c0 + i * L::kChPerLoad);
+    bi[i] = __ldg(bias + c0 + i * L::kChPerLoad);
+  }
+
+  // variance of the centred values
+#pragma unroll
+  for (int t = 0; t < V; ++t) acc[t] = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::kLoads; ++i) {
+    float v[V];
+    unpack<In>(raw[i], v);
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      const float d = v[t] - mu[t];
+      acc[t] = fmaf(d, d, acc[t]);
+    }
+  }
+  block_sum<V, L::kLanesPerCh>(acc, red, tot, warp, lane, n_warps);
+#pragma unroll
+  for (int t = 0; t < V; ++t) acc[t] = rsqrtf(acc[t] / D + eps);
+
+  // normalise, affine, cast, store
   if (in_range) {
-    for (int c = grp; c < D; c += kGroups) {
-      const float v = (In::load(slab[c * kTok + tok]) - mu) * rstd;
-      yb[static_cast<long long>(c) * N + n] = Out::store(v * scale[c] + bias[c]);
+#pragma unroll
+    for (int i = 0; i < L::kLoads; ++i) {
+      float v[V];
+      unpack<In>(raw[i], v);
+#pragma unroll
+      for (int t = 0; t < V; ++t) v[t] = fmaf((v[t] - mu[t]) * acc[t], sc[i], bi[i]);
+      const long long off = plane + static_cast<long long>(c0 + i * L::kChPerLoad) * N + n;
+      store<Out, V>(y + off, v);
     }
   }
 }
 
 template <typename In, typename Out>
-cudaError_t launch(const void* x, const float* scale, const float* bias,
-                   void* y, int B, int D, int N, float eps,
-                   cudaStream_t stream) {
-  const int smem = D * kTok * static_cast<int>(sizeof(typename In::T));
-  auto kernel = layernorm_cm_kernel<In, Out>;
-  // raise the dynamic shared-memory limit once per instantiation, device
-  // and size (a host-side call that would otherwise cost every launch)
-  static int smem_allowed[kMaxDevices] = {};
-  const cudaError_t err = allow_smem(kernel, smem, smem_allowed);
-  if (err != cudaSuccess) return err;
+cudaError_t launch(const void* x, const float* scale, const float* bias, void* y, int B, int D,
+                   int N, float eps, cudaStream_t stream) {
+  // 16-byte channel rows of x and y, one warp per 32 channels
+  if (D % 32 || D < 32 || D > 32 * kMaxWarps || (N * sizeof(typename In::T)) % 16 ||
+      (N * sizeof(typename Out::T)) % 16 || !is_aligned16(x) || !is_aligned16(y))
+    return cudaErrorInvalidValue;
   dim3 grid((N + kTok - 1) / kTok, B);
-  kernel<<<grid, kTok * kGroups, smem, stream>>>(
-      static_cast<const typename In::T*>(x), scale, bias,
-      static_cast<typename Out::T*>(y), D, N, eps);
+  layernorm_cm_kernel<In, Out><<<grid, D, 0, stream>>>(
+      static_cast<const typename In::T*>(x), scale, bias, static_cast<typename Out::T*>(y), D, N,
+      eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace mhmr
 
+// Returns cudaErrorInvalidValue for inputs the kernel does not take (the
+// Python wrapper checks the same and raises first): D not a multiple of 32
+// in [32, 1024], a channel row of x or y that is not a multiple of 16
+// bytes, or a base pointer that is not 16-byte aligned.
 extern "C" int mhmr_layernorm_cm(const void* x, const void* scale,
                                  const void* bias, void* y, int B, int D,
                                  int N, float eps, int in_dtype, int out_dtype,

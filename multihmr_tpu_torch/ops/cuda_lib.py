@@ -128,6 +128,8 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, f, i, p,
     ]
     lib.mhmr_flash_fwd_std.restype = i
+    lib.mhmr_flash_fwd_std_encode_ns.argtypes = [p, p, p, i, i, i, ll, ll, ll, i]
+    lib.mhmr_flash_fwd_std_encode_ns.restype = ctypes.c_double
     lib.mhmr_flash_bwd_t.argtypes = [
         p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
         ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, f, i, i, p,

@@ -2,10 +2,13 @@
 
 Counterpart of ``multihmr_tpu/ops/norm.py``. The transposed-stream ViT
 normalizes over the channel dim of ``[B, D, N]`` twice per block; on a CUDA
-tensor :func:`layernorm_cm` launches ``csrc/layernorm_cm.cu`` (one pass over
+tensor :func:`layernorm_cm` launches ``csrc/layernorm_cm.cu`` (one read of
 x, fp32 statistics, affine, cast), on a CPU tensor it runs
 :func:`layernorm_cm_reference`. There is no fallback: a CUDA tensor the
-kernel does not take raises.
+kernel does not take raises. K2 moves 16-byte vectors along tokens, so on
+the card every channel row of x and y must be 16-byte aligned
+(:func:`check_rows16`): the channels-major ViT pre-pads its stream to a
+multiple of 8 tokens. The plain version takes any N.
 
 :func:`layernorm_cm` is differentiable. Its backward is the analytic
 LayerNorm backward in torch ops on both devices (``_ln_bwd`` of the JAX
@@ -40,6 +43,24 @@ def layernorm_cm_reference(x, scale, bias, eps: float = 1e-6,
     return (y * _wide(scale)[None, :, None] + _wide(bias)[None, :, None]).to(out_dtype)
 
 
+def check_rows16(x, y):
+    """K2's rule: D a multiple of 32 in [32, 1024] (one warp per 32
+    channels, one block per 32 tokens), and every channel row of ``x`` and
+    ``y`` ``[B, D, N]`` 16-byte aligned: N times each one's element size a
+    multiple of 16 bytes and 16-byte aligned bases. Raises naming the rule;
+    nothing pads or copies here."""
+    D, N = x.shape[1:]
+    if D % 32 or not 32 <= D <= 1024:
+        raise ValueError(f"layernorm_cm: K2 takes D a multiple of 32 in [32, 1024], got {D}")
+    for name, t in (("x", x), ("y", y)):
+        if (N * t.element_size()) % 16 or t.data_ptr() % 16:
+            raise ValueError(
+                f"layernorm_cm: K2 moves 16-byte token vectors, so every channel row of {name} "
+                f"must be 16-byte aligned: N x element size a multiple of 16 bytes and a "
+                f"16-byte aligned base (pre-pad the stream to a multiple of 8 tokens); got "
+                f"N={N}, {t.dtype}, base {t.data_ptr() % 16} mod 16")
+
+
 def _layernorm_cm_cuda(x, scale, bias, eps, out_dtype):
     if x.dim() != 3:
         raise ValueError(f"layernorm_cm expects [B, D, N], got {tuple(x.shape)}")
@@ -54,6 +75,7 @@ def _layernorm_cm_cuda(x, scale, bias, eps, out_dtype):
     if not (x.is_contiguous() and scale.is_contiguous() and bias.is_contiguous()):
         raise ValueError("layernorm_cm: x, scale and bias must be contiguous")
     y = torch.empty((B, D, N), dtype=out_dtype, device=x.device)
+    check_rows16(x, y)
     lib = cuda_lib.library()
     err = lib.mhmr_layernorm_cm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),

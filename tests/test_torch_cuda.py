@@ -25,7 +25,10 @@ TPU kernels do, and the outputs to bf16: 2^-9 relative each).
 The bf16 K1 and K3 take only 16-byte token rows (a token count and strides
 that are multiples of 8): their cases run at the ViT's pre-padded lengths
 with junk past kv_len, (104, 97), (2312, 2305) and (640, 577); the fp32
-paths and K4a/K4b take any stride and keep odd token counts.
+paths and K4a/K4b take any stride and keep odd token counts. K2 takes only
+16-byte channel rows too: its cases run at aligned token counts (336 and
+the 672 px stream's 2,312) at D = 128, 384 and 1024; an odd count or a
+misaligned base raises.
 """
 
 import numpy as np
@@ -131,8 +134,9 @@ STD_OUT = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [97, 640, 2305])
 @pytest.mark.parametrize("layout", sorted(STD_OUT))
-def test_flash_attention_std_kernel(dev, dtype, n, layout):
-    q, k, v = _std_qkv(dev, dtype, n)
+@pytest.mark.parametrize("batch", [1, 2])
+def test_flash_attention_std_kernel(dev, dtype, n, layout, batch):
+    q, k, v = _std_qkv(dev, dtype, n, batch=batch)
     B, H = q.shape[:2]
     out = STD_OUT[layout](B, H, n, dtype, dev)
     cuda_lib.reset_launches()
@@ -174,11 +178,13 @@ def test_flash_attention_qkv_grad(dev):
 
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_layernorm_kernel(dev, in_dtype, out_dtype):
+@pytest.mark.parametrize("n", [336, 2312])
+@pytest.mark.parametrize("d", [128, 384, 1024])
+def test_layernorm_kernel(dev, in_dtype, out_dtype, n, d):
     g = torch.Generator(device=dev).manual_seed(1)
-    x = (torch.randn((2, 384, 333), device=dev, generator=g) * 3 + 1).to(in_dtype)
-    scale = torch.randn(384, device=dev, generator=g)
-    bias = torch.randn(384, device=dev, generator=g)
+    x = (torch.randn((2, d, n), device=dev, generator=g) * 3 + 1).to(in_dtype)
+    scale = torch.randn(d, device=dev, generator=g)
+    bias = torch.randn(d, device=dev, generator=g)
     cuda_lib.reset_launches()
     y = norm.layernorm_cm(x, scale, bias, 1e-6, out_dtype)
     torch.cuda.synchronize()
@@ -196,6 +202,22 @@ def test_layernorm_rejects(dev):
     s = torch.ones(4, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         norm.layernorm_cm(x, s, s)
+
+
+@pytest.mark.parametrize("case", ["odd N", "misaligned base"])
+def test_layernorm_rejects_unaligned_rows(dev, case):
+    """K2 moves 16-byte token vectors: a bf16 stream of 4,097 tokens, or a
+    contiguous one whose base is 2 bytes past a 16-byte boundary, raises
+    naming the rule; nothing pads or launches."""
+    if case == "odd N":
+        x = torch.zeros((1, 128, 4097), device=dev, dtype=torch.bfloat16)
+    else:
+        x = torch.zeros(128 * 336 + 1, device=dev, dtype=torch.bfloat16)[1:].view(1, 128, 336)
+    s = torch.ones(128, device=dev)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        norm.layernorm_cm(x, s, s)
+    assert not cuda_lib.LAUNCHES
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}

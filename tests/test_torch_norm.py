@@ -112,3 +112,57 @@ def test_forward_without_graph_skips_function(rng, mode):
         got = tnorm.layernorm_cm(x, scale, bias)
     assert got.grad_fn is None
     torch.testing.assert_close(got, want.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("D", [128, 384])
+def test_plain_on_padded_stream_matches_pallas(rng, D):
+    """The channels-major stream as the ViT hands it to K2: 17 tokens
+    zero-padded to round_up(17, 8) = 24. The real tokens match the Pallas
+    kernel (2e-5, as above); each pad token's output is exactly the bias
+    (mean 0, variance 0) on both sides."""
+    n, n_pad = 17, 24
+    x, scale, bias = _inputs(rng, n, D)
+    xp = np.zeros((2, D, n_pad), np.float32)
+    xp[..., :n] = x
+    want = np.asarray(jnorm._ln_fwd_pallas(jnp.asarray(xp), jnp.asarray(scale), jnp.asarray(bias),
+                                           1e-6, jnp.float32, interpret=True))
+    got = tnorm.layernorm_cm(torch.from_numpy(xp), torch.from_numpy(scale),
+                             torch.from_numpy(bias), 1e-6, torch.float32).numpy()
+    np.testing.assert_allclose(got[..., :n], want[..., :n], rtol=2e-5, atol=2e-5)
+    pad = np.broadcast_to(bias[None, :, None], (2, D, n_pad - n))
+    np.testing.assert_array_equal(got[..., n:], pad)
+    np.testing.assert_array_equal(want[..., n:], pad)
+
+
+# (x dtype, y dtype, D, N, takes): K2 takes D a multiple of 32 in [32, 1024]
+# and channel rows of x and y that are multiples of 16 bytes
+ROW_RULE = [
+    (torch.bfloat16, torch.bfloat16, 1024, 4104, True),
+    (torch.bfloat16, torch.float32, 384, 2312, True),
+    (torch.float32, torch.float32, 128, 20, True),
+    (torch.bfloat16, torch.bfloat16, 1024, 4097, False),
+    (torch.bfloat16, torch.bfloat16, 128, 20, False),
+    (torch.float32, torch.bfloat16, 128, 20, False),
+    (torch.float32, torch.float32, 128, 18, False),
+    (torch.bfloat16, torch.bfloat16, 100, 24, False),
+    (torch.bfloat16, torch.bfloat16, 2048, 24, False),
+]
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype,D,N,takes", ROW_RULE)
+def test_k2_row_rule(x_dtype, y_dtype, D, N, takes):
+    x = torch.zeros((1, D, N), dtype=x_dtype)
+    y = torch.empty((1, D, N), dtype=y_dtype)
+    if takes:
+        tnorm.check_rows16(x, y)
+    else:
+        with pytest.raises(ValueError, match="K2"):
+            tnorm.check_rows16(x, y)
+
+
+def test_k2_row_rule_misaligned_base():
+    # contiguous, but 2 bytes past a 16-byte boundary
+    x = torch.zeros(128 * 24 + 1, dtype=torch.bfloat16)[1:].view(1, 128, 24)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        tnorm.check_rows16(x, torch.empty((1, 128, 24), dtype=torch.bfloat16))
