@@ -34,9 +34,11 @@ channels-major one (``heads``, K1 and K2). Phases, one line each:
      ``_flash_bwd_impl_t(fused=False)``, whose launches are counted here)
      against the plain backward on phase 3's cases, and at batch 2 writing
      one packed [B, 3, H, 64, N] gradient as the training path does; dk and
-     dv past kv_len exact zeros; K3 against K4a + K4b;
+     dv past kv_len exact zeros; K3 against K4a + K4b; two calls of the
+     two-pass path bitwise equal (it is the deterministic backward);
   9. one multiHMR_672_S fp32 train step at batch 2 (ViT cut to 4 of its 12
-     blocks), the card against the CPU: loss terms and gradients;
+     blocks, LayerScale 0.5), the card against the CPU: loss terms and
+     gradients;
  10. multiHMR_896_L bf16 training, max_people 8, batch 2: 5 steps through
      ``Trainer.fit`` on collated synthetic samples (finite losses; 24 K1,
      24 K3 and 48 K2 launches per step), then, for both ViT streams, train
@@ -45,21 +47,22 @@ channels-major one (``heads``, K1 and K2). Phases, one line each:
      ``train/memory.py``'s constants to those peaks;
  11. times of the backward kernels and their plain version at
      [1, 16, 64, 4104] bf16 with kv_len 4097, and PyTorch's
-     scaled_dot_product_attention backward at [1, 16, 4097, 64], with the
-     least time the card could take for each kernel's work on the 4,097
-     true tokens;
+     scaled_dot_product_attention backward at [1, 16, 4097, 64] (the
+     library call of K3, and of K4a + K4b as one function), with the least
+     time the card could take for each kernel's work on the 4,097 true
+     tokens;
  12. K5 (standard-layout flash-attention forward) against its plain version
      at the ViT's lengths, bf16 and fp32, batch 1 and 2, on strided views of
      one [B, N, 3 * 16 * 64] projection, into the merged [B, N, H, 64] and
      the [B, H, 64, N] output layouts; deliberately broken copies of K5 (4),
-     K1 (2), K3 (2) and K2 (2), each built from its kernel's source with one
-     textual change in a temporary directory, which phase 12's, phase 3's,
-     phase 8's and phase 4's limits must fail; then K5, K1 and the SDPA
-     forward timed at [1, 16, 4097, 64] bf16, with K5's bound and the host
-     cost of encoding its tensor maps;
+     K1 (2), K3 (2), K4a (2), K4b (2) and K2 (2), each built from its
+     kernel's source with one textual change in a temporary directory, which
+     phase 12's, phase 3's, phase 8's and phase 4's limits must fail; then
+     K5, K1 and the SDPA forward timed at [1, 16, 4097, 64] bf16, with K5's
+     bound and the host cost of encoding its tensor maps;
  13. the standard stream (``tp_mode="ring"``): multiHMR_672_S fp32 card
      against CPU (inference at LayerScale 0.5 as in phase 5, and one batch-2
-     train step cut to 4 blocks), then multiHMR_896_L bf16 at
+     train step cut to 4 blocks as in phase 9), then multiHMR_896_L bf16 at
      LayerScale 0.5, ring against heads and each against the fp32 stream, on
      the same weights (patch tokens), the ring path's finite meshes with 24
      K5 and no K1 or K2 per image, and both streams' batch-1 forward times;
@@ -111,9 +114,14 @@ E2E_TOL = 1e-3  # 672_S card vs CPU, relative to each output's largest magnitude
 # gradient's largest magnitude: fp32 sums in other orders (dq's by atomics);
 # bf16 p and ds rounded before their products, outputs rounded to bf16
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# 672_S fp32 train step, card vs CPU: loss terms and each parameter's
-# gradient, relative to the largest magnitude
-TRAIN_TOL = 1e-3
+# 672_S fp32 train step at LayerScale LAYERSCALE, card vs CPU: loss terms and
+# each parameter's gradient, relative to the largest magnitude. The patch
+# tokens agree to ~1e-6, but the score head's ReLU (mlp_classif) makes the
+# gradient jump where a unit's input sits within rounding of 0: any change of
+# ~1e-7 (an image nudged by 2^-22, a kernel swapped for its plain version)
+# flips units and moves gradients by fixed steps of up to 9.6e-4
+# (tools/kernel_timing.py s1); the limit is twice that
+TRAIN_TOL = 2e-3
 # 896_L bf16 on the same weights: relative L2 error of the final-norm patch
 # tokens, ring against heads and each stream against the fp32 heads stream
 # (the control). bf16 rounds at other places on the two streams (F.linear
@@ -122,12 +130,10 @@ TRAIN_TOL = 1e-3
 STREAM_TOL = 2e-2
 # ring no further from the fp32 control than heads is, by more than this
 STREAM_RATIO = 1.1
-# LayerScale init of the models whose outputs phases 5 and 13 compare:
-# DINOv2's 1e-5 scales every block's branches down to about 1e-5 of the
-# stream, so a check of the outputs would not see the blocks (nor their
-# kernels); at 0.5 each block moves the stream by its own size. The train
-# steps of phases 9 and 13 keep 1e-5: their gradient checks, each relative
-# to its parameter's own largest gradient, see every block at any scale
+# LayerScale init of the models whose outputs and gradients phases 5, 9 and
+# 13 compare: DINOv2's 1e-5 scales every block's branches down to about 1e-5
+# of the stream, so a check of the outputs would not see the blocks (nor
+# their kernels); at 0.5 each block moves the stream by its own size
 LAYERSCALE = 0.5
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -430,12 +436,19 @@ def _grad_rel(a, b):
     return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
 
 
+def _bits(t):
+    """``t``'s bits as integers: equal exactly when the values are bitwise
+    equal, NaN included."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def check_bwd(attention, cuda_lib):
-    """K3 and K4a + K4b against the plain backward. Returns the max abs
+    """K3 and K4a + K4b against the plain backward, and a second call of the
+    two-pass path against the first, bit for bit. Returns the max abs
     errors at [B, 16, 64, 4104] bf16 with kv_len 4097, B = 1 and 2 (K3's
     dq/dk/dv, K4a's dq, K4b's dk/dv), and the launches of the two-pass path
     ``_flash_bwd_impl_t(fused=False)``, counted from 0 just before each of
-    its calls."""
+    its first calls."""
     errs = {"K3": 0.0, "K4a": 0.0, "K4b": 0.0}
     two_pass = {attention.KERNEL_BWD_DQ: 0, attention.KERNEL_BWD_DKV: 0}
     for n, dt, kv_len, batch in CASES:
@@ -446,7 +459,7 @@ def check_bwd(attention, cuda_lib):
         # batch 2 writes into one packed [B, 3, H, 64, N] gradient, as the
         # training path's autograd Function does
         packed = [torch.full((batch, 3) + q.shape[1:], float("nan"), dtype=dt, device="cuda")
-                  for _ in range(2)] if batch > 1 else [None, None]
+                  for _ in range(3)] if batch > 1 else [None] * 3
         out = lambda i: None if packed[i] is None else packed[i].unbind(1)  # noqa: E731
         fused = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=True,
                                             out=out(0))
@@ -455,7 +468,10 @@ def check_bwd(attention, cuda_lib):
                                           out=out(1))
         for name in two_pass:  # read just after it
             two_pass[name] += cuda_lib.LAUNCHES[name]
+        again = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=False,
+                                            out=out(2))
         torch.cuda.synchronize()
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(two, again))
         lim = n if kv_len is None else kv_len  # the pad lanes' dq is junk on both sides
         cut = lambda ts: [t[..., :lim] for t in ts]  # noqa: E731
         e3 = [_grad_rel(a, r) for a, r in zip(cut(fused), cut(ref))]
@@ -463,12 +479,13 @@ def check_bwd(attention, cuda_lib):
         e34 = [_grad_rel(a, r) for a, r in zip(cut(fused), cut(two))]
         zeros = kv_len is None or not any(t[..., kv_len:].any() for t in fused[1:] + two[1:])
         tol = BWD_TOL[dt]
-        ok = all(e <= tol for e in e3 + e4 + e34) and zeros  # NaN fails
+        ok = all(e <= tol for e in e3 + e4 + e34) and zeros and same  # NaN fails
         name = case_name(n, dt, kv_len, batch) + (", packed gradient" if batch > 1 else "")
         fmt = lambda es: "/".join(f"{e:.2e}" for e in es)  # noqa: E731
         log(8, f"{name}: rel err dq/dk/dv K3 {fmt(e3)}, K4a+K4b {fmt(e4)}, K3 vs K4 "
                f"{fmt(e34)} (tol {tol:g})" + ("" if kv_len is None else
                f", dk/dv past kv_len {'exact zeros' if zeros else 'NOT ZERO'}")
+               + f"; K4a+K4b twice: {'bitwise equal' if same else 'DIFFER'}"
                + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash backward {name} disagrees with its plain version")
@@ -477,7 +494,7 @@ def check_bwd(attention, cuda_lib):
             errs["K3"] = max(errs["K3"], *(abs_err(a, r) for a, r in zip(fused, ref)))
             errs["K4a"] = max(errs["K4a"], abs_err(two[0], ref[0]))
             errs["K4b"] = max(errs["K4b"], *(abs_err(a, r) for a, r in zip(two[1:], ref[1:])))
-        del q, k, v, o, lse, do, ref, fused, two, packed
+        del q, k, v, o, lse, do, ref, fused, two, again, packed
         torch.cuda.empty_cache()
     log(8, "two-pass path launches K4a/K4b " + "/".join(str(c) for c in two_pass.values()))
     return errs, two_pass
@@ -488,7 +505,8 @@ TRAIN_E2E_LAUNCHES = {"heads": (4, 4, 8, 0), "ring": (0, 4, 0, 4)}
 
 
 def check_train_e2e(cuda_lib, attention, norm, phase=9, tp_mode="heads"):
-    """One 672_S fp32 train step at batch 2 (4 ViT blocks), card against CPU."""
+    """One 672_S fp32 train step at batch 2 (4 ViT blocks, LayerScale
+    LAYERSCALE), card against CPU."""
     from multihmr_tpu_torch.config import VITS
     from multihmr_tpu_torch.factory import build_model
     from multihmr_tpu_torch.tools.train_smoke import synthetic_batch, train_config
@@ -496,7 +514,8 @@ def check_train_e2e(cuda_lib, attention, norm, phase=9, tp_mode="heads"):
 
     cfg = dataclasses.replace(train_config("multiHMR_672_S", max_people=4),
                               compute_dtype="float32",
-                              vit_override=dataclasses.replace(VITS, depth=4))
+                              vit_override=dataclasses.replace(VITS, depth=4,
+                                                               layerscale_init=LAYERSCALE))
     batch = synthetic_batch(2, cfg.max_people, cfg.img_size, seed=1)
     res = {}
     for dev in ("cpu", "cuda"):
@@ -520,7 +539,8 @@ def check_train_e2e(cuda_lib, attention, norm, phase=9, tp_mode="heads"):
                                                 norm.KERNEL, attention.KERNEL_STD))
     ok = (e_terms <= TRAIN_TOL and e_grads[worst] <= TRAIN_TOL
           and counts == TRAIN_E2E_LAUNCHES[tp_mode] and float(tb["finite"]) == 1.0)
-    log(phase, f"672_S fp32 train step ({tp_mode}), batch 2 (ViT cut to 4 of 12 blocks), card "
+    log(phase, f"672_S fp32 train step ({tp_mode}), batch 2 (ViT cut to 4 of 12 blocks, "
+               f"LayerScale {LAYERSCALE:g}), card "
                f"vs CPU: loss total {float(tb['total']):.4f} vs {float(ta['total']):.4f}, worst "
                f"loss-term rel err {e_terms:.2e}, worst gradient rel err {e_grads[worst]:.2e} "
                f"({worst}) over {len(e_grads)} parameters (tol {TRAIN_TOL:g}); card launches "
@@ -681,15 +701,18 @@ def time_bwd(attention, card):
     bounds = {attention.KERNEL_BWD: bound_ms(5 * prod, nbytes(8)),  # q k v o dO in, dq dk dv out
               attention.KERNEL_BWD_DQ: bound_ms(3 * prod, nbytes(6)),  # s, dp, dq
               attention.KERNEL_BWD_DKV: bound_ms(4 * prod, nbytes(7))}  # s, dp, dv, dk
+    pair = t[attention.KERNEL_BWD_DQ] + t[attention.KERNEL_BWD_DKV]
     log(11, f"flash backward [1,16,64,4104] kv_len 4097 bf16 [{card}]: K3 "
             f"{t[attention.KERNEL_BWD]:.4f} ms "
             f"(whole fused backward with D and the dq cast {whole:.4f} ms), "
-            f"K4a {t[attention.KERNEL_BWD_DQ]:.4f} ms + K4b {t[attention.KERNEL_BWD_DKV]:.4f} ms, "
-            f"plain {plain:.4f} ms, SDPA backward [1,16,4097,64] {lib:.4f} ms; bounds "
-            f"(4,097 tokens) K3/K4a/K4b "
+            f"K4a {t[attention.KERNEL_BWD_DQ]:.4f} ms + K4b {t[attention.KERNEL_BWD_DKV]:.4f} ms "
+            f"= {pair:.4f} ms (the two-pass backward, {pair / lib:.2f}x SDPA's, "
+            f"{pair / t[attention.KERNEL_BWD]:.2f}x K3's), plain {plain:.4f} ms, SDPA backward "
+            f"[1,16,4097,64] {lib:.4f} ms; bounds (4,097 tokens) K3/K4a/K4b "
             + "/".join(f"{b[0]:.4f}" for b in bounds.values()) + " ms (operations)")
-    return {name: (t[name], plain, lib if name == attention.KERNEL_BWD else None, *bounds[name])
-            for name in t}
+    # SDPA's backward computes dq, dk and dv: K3's function, and K4a's and
+    # K4b's together
+    return {name: (t[name], plain, lib, *bounds[name]) for name in t}
 
 
 def std_qkv_views(n, dtype, heads=16, seed=0, batch=1):
@@ -764,6 +787,21 @@ K2_MUTANTS = {
     "mean taken over D - 8 channels": [("mu[t] = acc[t] / D;", "mu[t] = acc[t] / (D - 8);")],
 }
 _K3_DQ = "wDQ[ch * kLdDQ + 16 * (warp % 4) + g + 8 * (i / 2)] = dqa[j][i] * scale;"
+_K4A_DQ = "wgmma_m64n64k16<0>(acc, af[kk], wgmma_desc(sK + 16 * kk, 0, 1024), 1);"
+K4A_MUTANTS = {
+    "dq product reads the v tile in place of k": [(_K4A_DQ, _K4A_DQ.replace("sK +", "sV +"))],
+    "no kv_len mask (p and the zeroed k/v of the last tile)": [
+        ("const bool tail = n0 + kKBlk > kv_len;", "const bool tail = false;")],
+}
+# K4b is K3's kernel without the dq partial (kDq = false): its mutants change
+# that instance alone
+_K4B_DS = "ds[nt][i] = p * (ds[nt][i] - tD[c]);"
+_K4B_DK = "sK[o] = BF16::store(dk_acc[d][i] * scale);"
+K4B_MUTANTS = {
+    "ds without the -D term": [
+        (_K4B_DS, "ds[nt][i] = kDq ? p * (ds[nt][i] - tD[c]) : p * ds[nt][i];")],
+    "dk not scaled": [(_K4B_DK, "sK[o] = BF16::store(kDq ? dk_acc[d][i] * scale : dk_acc[d][i]);")],
+}
 K3_MUTANTS = {
     "dq channels 24-31 and 56-63 dropped from the partial of every query tile": [
         (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;", "= j == 3 ? 0.f : dqa[j][i] * scale;"))],
@@ -774,21 +812,25 @@ K3_MUTANTS = {
 
 
 def check_mutants(attention, norm, cuda_lib):
-    """Build the mutants of K5, K1, K3 and K2 (cuda_lib.build_variants: one
-    nvcc each, all started together), run each through its kernel's wrapper
-    at the 896_L shape ([1, 16, 4097, 64] for K5; [1, 16, 64, 4104] with
-    kv_len 4097 for K1 and K3; [1, 1024, 4104] for K2, in every dtype pair)
-    and hold it to its sound kernel's limit, which must fail. Returns
-    {kernel: {mutant: max abs error}}."""
+    """Build the mutants of K5, K1, K3, K4a, K4b and K2
+    (cuda_lib.build_variants: one nvcc each, all started together), run each
+    through its kernel's wrapper at the 896_L shape ([1, 16, 4097, 64] for
+    K5; [1, 16, 64, 4104] with kv_len 4097 for K1, K3 and the two-pass
+    K4a + K4b; [1, 1024, 4104] for K2, in every dtype pair) and hold it to
+    its sound kernel's limit, which must fail. Returns {kernel: {mutant: max
+    abs error}}."""
     import tempfile
 
-    counted = (attention.KERNEL_STD, attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL)
+    counted = (attention.KERNEL_STD, attention.KERNEL, attention.KERNEL_BWD,
+               attention.KERNEL_BWD_DQ, attention.KERNEL_BWD_DKV, norm.KERNEL)
     launches = {k: cuda_lib.LAUNCHES[k] for k in counted}
-    readings = {"K5": {}, "K1": {}, "K3": {}, "K2": {}}
+    readings = {"K5": {}, "K1": {}, "K3": {}, "K4a": {}, "K4b": {}, "K2": {}}
     with tempfile.TemporaryDirectory() as tmp:
         builds = {"K5": cuda_lib.build_variants("flash_fwd_std.cu", K5_MUTANTS, tmp),
                   "K1": cuda_lib.build_variants("flash_fwd.cu", K1_MUTANTS, tmp),
                   "K3": cuda_lib.build_variants("flash_bwd.cu", K3_MUTANTS, tmp),
+                  "K4a": cuda_lib.build_variants("flash_bwd.cu", K4A_MUTANTS, tmp),
+                  "K4b": cuda_lib.build_variants("flash_bwd.cu", K4B_MUTANTS, tmp),
                   "K2": cuda_lib.build_variants("layernorm_cm.cu", K2_MUTANTS, tmp)}
         q, k, v = std_qkv_views(4097, torch.bfloat16, seed=4097)
         ref_out, ref_lse = attention.flash_fwd_reference(q, k, v)
@@ -819,18 +861,22 @@ def check_mutants(attention, norm, cuda_lib):
         do = torch.randn(q.shape, device="cuda",
                          generator=torch.Generator("cuda").manual_seed(5)).to(torch.bfloat16)
         ref = attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=n)
-        for name, build in builds["K3"].items():
-            with cuda_lib.use_variant(name, build, "mhmr_flash_bwd_t"):
-                grads = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=n)
-            errs = [_grad_rel(a[..., :n], r[..., :n]) for a, r in zip(grads, ref)]
-            passed = max(errs) <= BWD_TOL[torch.bfloat16]
-            log(12, f"K3 mutant ({name}) [1,16,64,4104] kv_len 4097 bf16: rel err dq/dk/dv "
-                    + "/".join(f"{e:.2e}" for e in errs) + f" (tol {BWD_TOL[torch.bfloat16]:g}); "
-                    f"phase 8's limit {'PASSES IT: FAIL' if passed else 'fails it: ok'}")
-            if passed:
-                raise AssertionError(f"phase 8's limit passes the broken K3 ({name})")
-            readings["K3"][name] = max((a[..., :n].float() - r[..., :n].float()).abs().max().item()
-                                       for a, r in zip(grads, ref))
+        for kern, fused in (("K3", True), ("K4a", False), ("K4b", False)):
+            for name, build in builds[kern].items():
+                with cuda_lib.use_variant(name, build, "mhmr_flash_bwd_t"):
+                    grads = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=n,
+                                                        fused=fused)
+                errs = [_grad_rel(a[..., :n], r[..., :n]) for a, r in zip(grads, ref)]
+                passed = all(e <= BWD_TOL[torch.bfloat16] for e in errs)  # NaN fails
+                log(12, f"{kern} mutant ({name}) [1,16,64,4104] kv_len 4097 bf16"
+                        f"{'' if fused else ', two-pass path'}: rel err dq/dk/dv "
+                        + "/".join(f"{e:.2e}" for e in errs)
+                        + f" (tol {BWD_TOL[torch.bfloat16]:g}); phase 8's limit "
+                        f"{'PASSES IT: FAIL' if passed else 'fails it: ok'}")
+                if passed:
+                    raise AssertionError(f"phase 8's limit passes the broken {kern} ({name})")
+                readings[kern][name] = max((a[..., :n].float() - r[..., :n].float()).abs()
+                                           .max().item() for a, r in zip(grads, ref))
         x, scale, bias = k2_inputs(1, 4104)
         for name, build in builds["K2"].items():
             with cuda_lib.use_variant(name, build, "mhmr_layernorm_cm"):

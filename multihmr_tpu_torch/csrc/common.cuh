@@ -39,46 +39,16 @@ struct Strides {
   long long b, h, d, n;
 };
 
-// ---- mma.sync building blocks (bf16 operands, fp32 accumulators)
+// ---- register fragments and shared-memory addresses
 //
-// Fragment recipes used by the attention kernels, for a tile in shared
-// memory with row stride `ld` (elements); mi = lane / 8, mr = lane % 8:
-//  * A (16 x 16, row = m, col = k) from a [k][m] tile, with .trans:
-//      &s[(16 * ks + (mi / 2) * 8 + mr) * ld + m0 + (mi % 2) * 8]
-//  * B of two n-tiles (2 x 8 wide, 16 deep) from a [k][n] tile, with .trans:
-//      &s[(16 * ks + (mi % 2) * 8 + mr) * ld + 8 * (2 * np + mi / 2)]
-//  * B of two n-tiles from an [n][k] tile, without .trans:
-//      &s[(8 * (2 * np + mi / 2) + mr) * ld + 16 * ks + (mi % 2) * 8]
-// and the C fragments of n-tiles 2j, 2j + 1 re-pack in registers into the A
-// fragment of k-step j (C element i sits at row g + 8 * (i / 2), column
-// 2 * tq + i % 2 of its 16 x 8 tile; g = lane / 4, tq = lane % 4).
+// Accumulator and A-fragment layouts are those of mma.sync.m16n8k16 (see the
+// wgmma section below): C element i of a 16 x 8 tile sits at row
+// g + 8 * (i / 2), column 2 * tq + i % 2 (g = lane / 4, tq = lane % 4), and
+// the C fragments of n-tiles 2j, 2j + 1 re-pack in registers into the A
+// fragment of k-step j (c_to_a).
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -107,27 +77,9 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// [64 channels][kTok tokens] bf16 tile starting at token n0 into shared
-// memory with row stride kStride, by kThreads threads; tokens >= lim -> 0.
-// 2-byte loads coalesced along tokens: any stride and any N work.
-template <int kTok, int kStride, int kThreads>
-__device__ __forceinline__ void stage_tile(uint16_t* __restrict__ s,
-                                           const uint16_t* __restrict__ g,
-                                           long long sd, long long sn, int n0,
-                                           int lim, int tid) {
-#pragma unroll 8
-  for (int i = 0; i < (64 * kTok) / kThreads; ++i) {
-    const int e = i * kThreads + tid;
-    const int d = e / kTok;
-    const int t = e % kTok;
-    const int n = n0 + t;
-    s[d * kStride + t] = n < lim ? g[d * sd + n * sn] : uint16_t(0);
-  }
-}
-
 // ---- 16-byte asynchronous copies (cp.async) into 128-byte-swizzled tiles
 //
-// K1 and K3 stage [64 channel][64 token] bf16 tiles of a channels-major
+// The bf16 flash kernels stage [64 channel][64 token] bf16 tiles of a channels-major
 // [.., 64, N] operand whose token rows are 16-byte aligned (N and the
 // strides multiples of 8: the caller checks). A tile is 64 rows of 128
 // bytes, 8 KB, 1024-byte aligned, with the 16-byte chunk c of row r stored
@@ -385,7 +337,7 @@ __device__ __forceinline__ void named_barrier_arrive(int id) {
 
 inline bool is_aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// the rule of the bf16 K1 and K3 (ops/attention.py::_check_rows16): token
+// the rule of the bf16 K1, K3, K4a and K4b (ops/attention.py::_check_rows16): token
 // stride 1, a token count and channel, head and batch strides that are
 // multiples of 8 (batch and head strides of a size-1 dim are not used),
 // 16-byte aligned base pointers

@@ -22,10 +22,11 @@
 // Bound: compute. At 896_L ([1, 16, 64, 4097]) the fused backward does five
 // N^2 * 64 products per head, 171.9 GFLOP, 0.174 ms at 989 TFLOP/s, against
 // ~67 MB of operands (0.020 ms at 3.35 TB/s). The two-pass form recomputes s
-// and dp in both passes: 7 products, 240.6 GFLOP for the same function. On
-// the H100, K3 reads 0.60 ms: its per-tile chain runs in series within each
-// warpgroup, the dV/dK products taking 0.16 ms of it and the dq reduce 0.11
-// (tools/kernel_timing.py variants).
+// and dp in both passes: 7 products, 240.6 GFLOP for the same function, K4a
+// three of them (0.104 ms) and K4b four (0.139 ms). On the H100, K3 reads
+// 0.59-0.61 ms, K4a 0.20-0.21 and K4b 0.35-0.37: each warpgroup runs its
+// per-tile chain (copy wait, products, p and ds) in series, and removing
+// K3's dq reduce saves 0.09 ms (tools/kernel_timing.py ab, variants).
 //
 // What changes from the TPU kernel: the TPU grid runs in order without
 // atomics, so K3 there writes one fp32 dq partial per kv block
@@ -39,18 +40,25 @@
 // the shared staging free of bank conflicts), so a warpgroup's 32 rows are
 // one contiguous copy rather than 32 row copies of 256 bytes. The order of
 // the adds varies from run to run, so dq's fp32 sum does too (rounding,
-// ~1e-7 relative). K4a/K4b keep the deterministic two-pass form.
+// ~1e-7 relative). K4a/K4b are the deterministic form: every output is one
+// thread's fp32 register sum, added in a fixed order, so two calls give
+// bitwise-equal gradients.
 //
-// Design of K3 (bf16, wgmma m64n64k16, fp32 accumulators; the token count
-// and every stride are multiples of 8, as the ViT's pre-padded stream and
-// the standard stream's padded copy have them, and the wrapper checks): one
-// block of two warpgroups per (batch*head, 128-key tile); warpgroup w owns
-// keys 64w..64w+63 (each of its warps 16 of them) and holds their dk, dv as
-// fp32 accumulators for the whole walk over 64-query tiles. Every copy is a
+// Every bf16 kernel here takes only 16-byte token rows: the token count and
+// every stride are multiples of 8 and the bases 16-byte aligned, as the
+// ViT's pre-padded stream and the standard stream's padded copy have them
+// (the wrapper and the C entry check; nothing pads). Every copy is a
 // 16-byte cp.async into a 128-byte-swizzled [64 channel][64 token] tile
-// (common.cuh): k and v once, then the q and dO tiles with their lse and D,
-// double-buffered, so that tile t+1 is in flight while tile t is
-// multiplied. Per query tile and warpgroup:
+// (common.cuh), and every product a wgmma m64n64k16 (or m64n32k16) with
+// fp32 accumulators.
+//
+// Design of K3 and K4b (one kernel, flash_bwd_dkv_bf16_kernel<kDq>; K3 is
+// kDq = true, K4b kDq = false): one block of two warpgroups per
+// (batch*head, 128-key tile); warpgroup w owns keys 64w..64w+63 (each of
+// its warps 16 of them) and holds their dk, dv as fp32 accumulators for the
+// whole walk over 64-query tiles: k and v once, then the q and dO tiles
+// with their lse and D, double-buffered, so that tile t+1 is in flight
+// while tile t is multiplied. Per query tile and warpgroup:
 //  * S^T = k^T q and dP^T = v^T dO: A = the k or v tile, B = the q or dO
 //    tile, all [channel = depth][token] in shared memory (MN-major; k and v
 //    stay there for the walk: a loop-invariant register A fragment is not
@@ -59,28 +67,37 @@
 //    points of the TPU kernel: p before dO p^T, ds before the dk and dq
 //    products); dv += p dO^T and dk += ds q^T with B = the dO and q tiles
 //    read K-major;
-//  * ds^T (bf16) to shared memory, then the block's dq partial over its 128
-//    keys, dq = ds k (A = the ds^T tiles, MN-major; B = the k tiles,
-//    K-major; warpgroup w takes channels 32w..32w+31, m64n32k16), staged
-//    as fp32 and added by one bulk reduce per warpgroup, which runs behind
-//    the next tile's math. (One partial per warpgroup, over its 64 keys,
-//    needs no barrier between the warpgroups but doubles the adds, and
-//    read slower on the card.)
+//  * K3 only: ds^T (bf16) to shared memory, then the block's dq partial over
+//    its 128 keys, dq = ds k (A = the ds^T tiles, MN-major; B = the k tiles,
+//    K-major; warpgroup w takes channels 32w..32w+31, m64n32k16), staged as
+//    fp32 and added by one bulk reduce per warpgroup, which runs behind the
+//    next tile's math. (One partial per warpgroup, over its 64 keys, needs
+//    no barrier between the warpgroups but doubles the adds, and read slower
+//    on the card.) K4b has none of this: no ds^T tiles, no dq product, no
+//    fp32 dq tile and no reduce, so its shared memory is 8 tiles, not 10
+//    plus the dq tile.
 //
-// Design of K4a/K4b (bf16, mma.sync m16n8k16): K4b one block of 8 warps per
-// (batch*head, 128-key tile), warp w owning keys 16w..16w+15 with k^T and
-// v^T as A fragments and its dk, dv rows as accumulators, walking 64-query
-// tiles (S^T, dP^T, p, ds, dv += p dO^T, dk += ds q^T, as K3 without the dq
-// partial); K4a one block of 8 warps per (batch*head, 128-query tile),
-// walking 64-key tiles, q and dO held as A fragments: s = q k^T, dp = dO
-// v^T, ds, dq += ds k; dq goes out through shared memory, coalesced. Both
-// stage their tiles with 2-byte loads coalesced along tokens, so they take
-// any N and strides.
+// Design of K4a (flash_bwd_dq_bf16_kernel): K1's shape of work without the
+// online softmax. One block of two warpgroups per (batch*head, 128-query
+// tile); warpgroup w owns queries 64w..64w+63. The q and dO tiles are
+// copied once; a ring of kStages k/v tile pairs over 64-key tiles keeps
+// tiles j+1 and j+2 in flight while tile j is multiplied. Per kv tile:
+//  * S = q k^T and dP = dO v^T: A = the warpgroup's q or dO tile, B = the k
+//    or v tile, all [channel = depth][token] in shared memory (MN-major);
+//  * p = exp2(s * scale * log2(e) - lse * log2(e)) and ds = p (dp - D) in
+//    registers; ds re-packed to bf16 as an A fragment (the TPU kernel's
+//    rounding point);
+//  * dq += ds k: B = the k tile [channel][key], K-major (K1's P.V with k in
+//    place of v).
+// Keys at or past kv_len get p = 0, and the last tile's k and v entries
+// there are zeroed in shared memory, so junk or NaN in a pre-padded stream
+// cannot reach dq. dq is scaled once at the end and goes out through shared
+// memory as [channel][query] tiles with 16-byte stores.
 //
 // Design (fp32, the precision-check mode: no TF32): scalar FMA kernels.
 // dq: one thread per query row, as K1's fp32 path. dk/dv: two threads per
 // key (32 channels each, partial dot products joined by a shuffle). Mode 0
-// runs both.
+// runs both. They take any N and strides.
 #include "common.cuh"
 
 namespace mhmr {
@@ -89,171 +106,21 @@ namespace {
 constexpr int kDh = 64;
 constexpr int kThreads = 256;  // 8 warps
 
-// --------------------------------------------------------- bf16 K4b (kv-major)
-constexpr int kKeys = 128;        // keys per block (8 warps x 16)
-constexpr int kQry = 64;          // queries per step
-constexpr int kLdK = kKeys + 8;   // [channel][key] row stride (272 B)
-constexpr int kLdQ = kQry + 8;    // [channel][query] row stride (144 B)
-constexpr int kLdS = kQry + 8;    // [key][query] ds row stride (144 B)
-// dynamic shared memory: sK, sQ, sDO, sDS (v at the start), lse2 and D
-constexpr int kSmemKV = 2 * (kDh * kLdK + 2 * kDh * kLdQ + kKeys * kLdS) + 2 * 4 * kQry;
+constexpr int kKeys = 128;  // K3/K4b: keys per block (2 warpgroups x 64)
+constexpr int kQry = 64;    // K3/K4b: queries per step
 
 struct OutStrides {
   long long b, h;  // channel stride N, token stride 1
 };
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
-                         const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v,
-                         const uint16_t* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dd,
-                         uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                         int H, int N, int kv_len, Strides st, Strides sdo,
-                         OutStrides os, float scale, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);  // [64][kLdK]
-  uint16_t* sQ = sK + kDh * kLdK;                          // [64][kLdQ]
-  uint16_t* sDO = sQ + kDh * kLdQ;                         // [64][kLdQ]
-  uint16_t* sDS = sDO + kDh * kLdQ;                        // [128][kLdS]
-  float* sLse = reinterpret_cast<float*>(sDS + kKeys * kLdS);  // log2 units
-  float* sD = sLse + kQry;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int mi = lane / 8;
-  const int mr = lane % 8;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int key0 = blockIdx.x * kKeys;
-  const long long base = b * st.b + h * st.h;
-  const long long base_do = b * sdo.b + h * sdo.h;
-
-  // k and v as [channel][key] (v in the sDS area until its fragments are
-  // loaded); keys >= kv_len are zeros
-  stage_tile<kKeys, kLdK, kThreads>(sK, k + base, st.d, st.n, key0, kv_len, tid);
-  stage_tile<kKeys, kLdK, kThreads>(sDS, v + base, st.d, st.n, key0, kv_len, tid);
-  __syncthreads();
-  uint32_t kf[4][4], vf[4][4];  // A fragments: row = key, col = channel
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int off = (16 * ks + (mi / 2) * 8 + mr) * kLdK + 16 * warp + (mi % 2) * 8;
-    ldsm_x4_trans(kf[ks], &sK[off]);
-    ldsm_x4_trans(vf[ks], &sDS[off]);
-  }
-
-  float dk_acc[8][4], dv_acc[8][4];
-#pragma unroll
-  for (int d = 0; d < 8; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[d][i] = dv_acc[d][i] = 0.f;
-
-  const int krow = key0 + 16 * warp + g;  // this thread's keys: krow, krow + 8
-  const bool kmask[2] = {krow >= kv_len, krow + 8 >= kv_len};
-
-  const int n_tiles = (N + kQry - 1) / kQry;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kQry;
-    __syncthreads();  // every warp is done with the previous tile (and v)
-    stage_tile<kQry, kLdQ, kThreads>(sQ, q + base, st.d, st.n, q0, N, tid);
-    stage_tile<kQry, kLdQ, kThreads>(sDO, dout + base_do, sdo.d, sdo.n, q0, N, tid);
-    if (tid < kQry) {
-      const int n = q0 + tid;
-      // queries past N: zero q and dO, lse = +inf so that p = 0
-      sLse[tid] = n < N ? lse[static_cast<long long>(bh) * N + n] * kLog2e : INFINITY;
-      sD[tid] = n < N ? dd[static_cast<long long>(bh) * N + n] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = k^T q and dP^T = v^T dO: 16 keys x 64 queries per warp
-    float s[8][4], ds[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = ds[nt][i] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int off = (16 * ks + (mi % 2) * 8 + mr) * kLdQ + 8 * (2 * np + mi / 2);
-        uint32_t bq[4], bo[4];
-        ldsm_x4_trans(bq, &sQ[off]);
-        ldsm_x4_trans(bo, &sDO[off]);
-        mma_bf16(s[2 * np], kf[ks], bq[0], bq[1]);
-        mma_bf16(s[2 * np + 1], kf[ks], bq[2], bq[3]);
-        mma_bf16(ds[2 * np], vf[ks], bo[0], bo[1]);
-        mma_bf16(ds[2 * np + 1], vf[ks], bo[2], bo[3]);
-      }
-    }
-    // p = exp2(s * scale * log2(e) - lse2), ds = p * (dp - D)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = 8 * nt + 2 * tq + (i % 2);
-        const float p = kmask[i / 2] ? 0.f : exp2f(s[nt][i] * scale_log2 - sLse[c]);
-        s[nt][i] = p;
-        ds[nt][i] = p * (ds[nt][i] - sD[c]);
-      }
-
-    // dv += p dO^T, dk += ds q^T (k-steps of 16 queries; B from [ch][query])
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ap[4], as[4];
-      c_to_a(ap, s[2 * kk], s[2 * kk + 1]);
-      c_to_a(as, ds[2 * kk], ds[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        const int off = (8 * (2 * dp + mi / 2) + mr) * kLdQ + 16 * kk + (mi % 2) * 8;
-        uint32_t bo[4], bq[4];
-        ldsm_x4(bo, &sDO[off]);
-        ldsm_x4(bq, &sQ[off]);
-        mma_bf16(dv_acc[2 * dp], ap, bo[0], bo[1]);
-        mma_bf16(dv_acc[2 * dp + 1], ap, bo[2], bo[3]);
-        mma_bf16(dk_acc[2 * dp], as, bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * dp + 1], as, bq[2], bq[3]);
-      }
-    }
-  }
-
-  // epilogue: dk (scaled) and dv as [channel][key] tiles in sK / sDS, then
-  // stores coalesced along keys
-  __syncthreads();
-#pragma unroll
-  for (int d = 0; d < 8; ++d)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ch = 8 * d + 2 * tq + (i % 2);
-      const int key = 16 * warp + g + 8 * (i / 2);
-      sK[ch * kLdK + key] = BF16::store(dk_acc[d][i] * scale);
-      sDS[ch * kLdK + key] = BF16::store(dv_acc[d][i]);
-    }
-  __syncthreads();
-  const long long ob = b * os.b + h * os.h;
-#pragma unroll 8
-  for (int i = 0; i < (kDh * kKeys) / kThreads; ++i) {
-    const int e = i * kThreads + tid;
-    const int d = e / kKeys;
-    const int t = e % kKeys;
-    if (key0 + t < N) {
-      const long long o = ob + static_cast<long long>(d) * N + key0 + t;
-      dk[o] = sK[d * kLdK + t];
-      dv[o] = sDS[d * kLdK + t];
-    }
-  }
-}
-
-// ------------------------------------------------------- bf16 K3 (fused)
+// ------------------------------------------- bf16 K3 (kDq) and K4b (!kDq)
 constexpr int kLdDQ = kQry + 4;  // fp32 [channel][query] dq row stride (272 B)
-// dynamic shared memory: k, v and ds^T (2 tiles each), q and dO (2 stages
-// each), lse and D (2 stages each), the fp32 dq tile, and slack to align
-// the base to 1024 bytes
-constexpr int kSmemFused =
-    10 * kTileElems * 2 + 2 * 2 * kQry * 4 + kDh * kLdDQ * 4 + 1024;
+// dynamic shared memory: k and v (2 tiles each), K3's ds^T (2 tiles), q and
+// dO (2 stages each), lse and D (2 stages each), K3's fp32 dq tile, and
+// slack to align the base to 1024 bytes
+constexpr int smem_dkv(bool dq) {
+  return (dq ? 10 : 8) * kTileElems * 2 + 2 * 2 * kQry * 4 + (dq ? kDh * kLdDQ * 4 : 0) + 1024;
+}
 
 // queue the query tile at q0 (q, dO, lse, D) into one stage
 __device__ __forceinline__ void load_query_tile(uint16_t* sQ, uint16_t* sDO, float* sLse,
@@ -297,26 +164,29 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// kDq: K3 (dk, dv and the dq partials); !kDq: K4b (dk and dv alone, dq_acc
+// unused)
+template <bool kDq>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_fused_bf16_kernel(const uint16_t* __restrict__ q,
-                            const uint16_t* __restrict__ k,
-                            const uint16_t* __restrict__ v,
-                            const uint16_t* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ dd,
-                            float* __restrict__ dq_acc,
-                            uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                            int H, int N, int kv_len, Strides st, Strides sdo,
-                            OutStrides os, float scale, float scale_log2) {
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          const uint16_t* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dd,
+                          float* __restrict__ dq_acc,
+                          uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                          int H, int N, int kv_len, Strides st, Strides sdo,
+                          OutStrides os, float scale, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(align1024(smem_raw));  // keys 0-63, 64-127
   uint16_t* sV = sK + 2 * kTileElems;    // [ch][key], as sK
-  uint16_t* sDS = sV + 2 * kTileElems;   // ds^T [key][query], keys 0-63, 64-127
-  uint16_t* sQ = sDS + 2 * kTileElems;   // stage s: sQ + s * kTileElems
+  uint16_t* sDS = sV + 2 * kTileElems;   // K3: ds^T [key][query], keys 0-63, 64-127
+  uint16_t* sQ = sDS + (kDq ? 2 : 0) * kTileElems;  // stage s: sQ + s * kTileElems
   uint16_t* sDO = sQ + 2 * kTileElems;   // stage s: sDO + s * kTileElems
   float* sLse = reinterpret_cast<float*>(sDO + 2 * kTileElems);  // stage s: + s * kQry
   float* sD = sLse + 2 * kQry;
-  float* sDQ = sD + 2 * kQry;            // [64 channel][kLdDQ]; warpgroup w: rows 32w..
+  float* sDQ = sD + 2 * kQry;            // K3: [64 channel][kLdDQ]; warpgroup w: rows 32w..
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -425,17 +295,19 @@ flash_bwd_fused_bf16_kernel(const uint16_t* __restrict__ q,
 
     // dv += p dO^T, dk += ds q^T: A = p and ds re-packed to bf16 (k-steps of
     // 16 queries), B = the dO and q tiles, K-major ([channel][query]), 32
-    // bytes further per step; ds^T to shared memory for the dq partial
+    // bytes further per step; K3: ds^T to shared memory for the dq partial
     uint32_t ap[4][4], as[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       c_to_a(ap[kk], s[2 * kk], s[2 * kk + 1]);
       c_to_a(as[kk], ds[2 * kk], ds[2 * kk + 1]);
-      const int r = 16 * (warp % 4) + g, c = 16 * kk + 2 * tq;
-      *reinterpret_cast<uint32_t*>(sDSw + swz(r, c)) = as[kk][0];
-      *reinterpret_cast<uint32_t*>(sDSw + swz(r + 8, c)) = as[kk][1];
-      *reinterpret_cast<uint32_t*>(sDSw + swz(r, c + 8)) = as[kk][2];
-      *reinterpret_cast<uint32_t*>(sDSw + swz(r + 8, c + 8)) = as[kk][3];
+      if constexpr (kDq) {
+        const int r = 16 * (warp % 4) + g, c = 16 * kk + 2 * tq;
+        *reinterpret_cast<uint32_t*>(sDSw + swz(r, c)) = as[kk][0];
+        *reinterpret_cast<uint32_t*>(sDSw + swz(r + 8, c)) = as[kk][1];
+        *reinterpret_cast<uint32_t*>(sDSw + swz(r, c + 8)) = as[kk][2];
+        *reinterpret_cast<uint32_t*>(sDSw + swz(r + 8, c + 8)) = as[kk][3];
+      }
     }
     reg_fence(dv_acc);
     reg_fence(dk_acc);
@@ -450,6 +322,7 @@ flash_bwd_fused_bf16_kernel(const uint16_t* __restrict__ q,
     reg_fence(dv_acc);
     reg_fence(dk_acc);
 
+    if constexpr (!kDq) continue;  // K4b: no dq partial
     // the block's dq partial over its 128 keys, dq = ds k, warpgroup w taking
     // channels 32w..32w+31: A = the ds^T tiles ([key = depth][query],
     // MN-major), B = rows 32w.. of the k tiles ([channel][key], K-major);
@@ -486,8 +359,9 @@ flash_bwd_fused_bf16_kernel(const uint16_t* __restrict__ q,
     }
   }
 
-  // epilogue: dk (scaled) and dv as [channel][key] tiles in sK / sDS, then
-  // 16-byte stores along keys
+  // epilogue: dk (scaled) and dv as [channel][key] tiles in sK and sDS (K4b:
+  // sV), then 16-byte stores along keys
+  uint16_t* sDV = kDq ? sDS : sV;
   __syncthreads();
 #pragma unroll
   for (int d = 0; d < 8; ++d)
@@ -497,7 +371,7 @@ flash_bwd_fused_bf16_kernel(const uint16_t* __restrict__ q,
       const int key = 16 * warp + g + 8 * (i / 2);
       const int o = (key >> 6) * kTileElems + swz(ch, key & 63);
       sK[o] = BF16::store(dk_acc[d][i] * scale);
-      sDS[o] = BF16::store(dv_acc[d][i]);
+      sDV[o] = BF16::store(dv_acc[d][i]);
     }
   __syncthreads();
   const long long ob = b * os.b + h * os.h;
@@ -510,19 +384,21 @@ flash_bwd_fused_bf16_kernel(const uint16_t* __restrict__ q,
       const long long o = ob + static_cast<long long>(ch) * N + key0 + t;
       const int so = (t >> 6) * kTileElems + swz(ch, t & 63);
       *reinterpret_cast<uint4*>(dk + o) = *reinterpret_cast<const uint4*>(sK + so);
-      *reinterpret_cast<uint4*>(dv + o) = *reinterpret_cast<const uint4*>(sDS + so);
+      *reinterpret_cast<uint4*>(dv + o) = *reinterpret_cast<const uint4*>(sDV + so);
     }
   }
-  if (tid % 128 == 0) bulk_wait();  // the dq reduces have completed
+  if (kDq && tid % 128 == 0) bulk_wait();  // the dq reduces have completed
 }
 
-// ----------------------------------------------------- bf16 K4a (q-major)
-constexpr int kQBlk = 128;          // queries per block (8 warps x 16)
-constexpr int kKBlk = 64;           // keys per kv tile
-constexpr int kLdQB = kQBlk + 8;    // 272 B
-constexpr int kLdKB = kKBlk + 8;    // 144 B
+// ------------------------------------------------------- bf16 K4a (q-major)
+constexpr int kQBlk = 128;  // queries per block (2 warpgroups x 64)
+constexpr int kKBlk = 64;   // keys per kv tile
+constexpr int kStages = 3;  // k/v tile pairs in the ring
+// the q and dO tiles (2 each), the k/v ring, and slack to align the base to
+// 1024 bytes
+constexpr int kSmemDq = (4 + 2 * kStages) * kTileElems * 2 + 1024;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
                          const uint16_t* __restrict__ k,
                          const uint16_t* __restrict__ v,
@@ -532,37 +408,50 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
                          uint16_t* __restrict__ dq, int H, int N, int kv_len,
                          Strides st, Strides sdo, OutStrides os, float scale,
                          float scale_log2) {
-  __shared__ __align__(16) uint16_t sX[kDh * kLdQB];  // q, then dO, then dq
-  __shared__ __align__(16) uint16_t sK[kDh * kLdKB];
-  __shared__ __align__(16) uint16_t sV[kDh * kLdKB];
+  extern __shared__ unsigned char smem_raw[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(align1024(smem_raw));  // 2 tiles
+  uint16_t* sDO = sQ + 2 * kTileElems;   // 2 tiles
+  uint16_t* sKV = sDO + 2 * kTileElems;  // stage s: k tile 2s, v tile 2s + 1
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int mi = lane / 8;
-  const int mr = lane % 8;
-  const int g = lane / 4;
-  const int tq = lane % 4;
+  const int g = lane / 4;   // accumulator rows g and g + 8
+  const int tq = lane % 4;  // accumulator columns 2tq, 2tq + 1
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int m0 = blockIdx.x * kQBlk;
-  const long long base = b * st.b + h * st.h;
+  const uint16_t* qb = q + b * st.b + h * st.h;
+  const uint16_t* kb = k + b * st.b + h * st.h;
+  const uint16_t* vb = v + b * st.b + h * st.h;
+  const uint16_t* dob = dout + b * sdo.b + h * sdo.h;
+  const int n_tiles = (kv_len + kKBlk - 1) / kKBlk;
 
-  // q and dO as A fragments (row = query, col = channel), one staging buffer
-  uint32_t qf[4][4], of[4][4];
-  stage_tile<kQBlk, kLdQB, kThreads>(sX, q + base, st.d, st.n, m0, N, tid);
-  __syncthreads();
+  // q and dO once, then the first kStages - 1 k/v tiles: one commit group
+  // each
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldsm_x4_trans(qf[ks], &sX[(16 * ks + (mi / 2) * 8 + mr) * kLdQB + 16 * warp + (mi % 2) * 8]);
-  __syncthreads();
-  stage_tile<kQBlk, kLdQB, kThreads>(sX, dout + b * sdo.b + h * sdo.h, sdo.d, sdo.n, m0, N, tid);
-  __syncthreads();
+  for (int half = 0; half < 2; ++half) {
+    load_tile_async<kThreads>(sQ + half * kTileElems, qb, st.d, m0 + 64 * half, N, tid);
+    load_tile_async<kThreads>(sDO + half * kTileElems, dob, sdo.d, m0 + 64 * half, N, tid);
+  }
+  cp_async_commit();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldsm_x4_trans(of[ks], &sX[(16 * ks + (mi / 2) * 8 + mr) * kLdQB + 16 * warp + (mi % 2) * 8]);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile_async<kThreads>(sKV + 2 * s * kTileElems, kb, st.d, s * kKBlk, N, tid);
+      load_tile_async<kThreads>(sKV + (2 * s + 1) * kTileElems, vb, st.d, s * kKBlk, N, tid);
+    }
+    cp_async_commit();
+  }
+  // this warpgroup's 64 queries: the A operands of S = q k^T and dP = dO v^T
+  // stay in shared memory ([channel = depth][query], MN-major)
+  const int wg = warp / 4;
+  const uint16_t* sQw = sQ + wg * kTileElems;
+  const uint16_t* sDOw = sDO + wg * kTileElems;
 
-  float lse2[2], dr[2];  // rows g and g + 8; past N: p = 0
+  // this thread's query rows: lse in log2 units and D; rows past N get
+  // p = 0 (their q and dO are zero-filled and their dq is not stored)
+  float lse2[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int n = m0 + 16 * warp + g + 8 * r;
@@ -576,74 +465,106 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[d][i] = 0.f;
 
-  const int n_tiles = (kv_len + kKBlk - 1) / kKBlk;
   for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile j have landed
+    fence_async_shared();
+    __syncthreads();  // ... every thread's; and all are done with tile j - 1
+    {
+      const int jn = j + kStages - 1;  // refill the stage tile j - 1 used
+      if (jn < n_tiles) {
+        uint16_t* st_k = sKV + 2 * (jn % kStages) * kTileElems;
+        load_tile_async<kThreads>(st_k, kb, st.d, jn * kKBlk, N, tid);
+        load_tile_async<kThreads>(st_k + kTileElems, vb, st.d, jn * kKBlk, N, tid);
+      }
+      cp_async_commit();
+    }
+    uint16_t* sK = sKV + 2 * (j % kStages) * kTileElems;
+    uint16_t* sV = sK + kTileElems;
     const int n0 = j * kKBlk;
-    __syncthreads();
-    stage_tile<kKBlk, kLdKB, kThreads>(sK, k + base, st.d, st.n, n0, kv_len, tid);
-    stage_tile<kKBlk, kLdKB, kThreads>(sV, v + base, st.d, st.n, n0, kv_len, tid);
-    __syncthreads();
+    const bool tail = n0 + kKBlk > kv_len;
+    if (tail) {  // k and v entries of keys at or past kv_len -> exact zeros
+      for (int e = tid; e < kTileElems; e += kThreads) {
+        const int t = e % kKBlk;
+        if (n0 + t >= kv_len) {
+          sK[swz(e / kKBlk, t)] = 0;
+          sV[swz(e / kKBlk, t)] = 0;
+        }
+      }
+      fence_async_shared();
+      __syncthreads();
+    }
 
-    float s[8][4], ds[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = ds[nt][i] = 0.f;
+    // S = q k^T and dP = dO v^T for this warpgroup's 64 queries x 64 keys
+    // (the warp's 16 rows: 8 n-tiles of 8 keys); k-step ks is rows 16ks..
+    // of every tile
+    float s[8][4], dp[8][4];
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int off = (16 * ks + (mi % 2) * 8 + mr) * kLdKB + 8 * (2 * np + mi / 2);
-        uint32_t bk[4], bv[4];
-        ldsm_x4_trans(bk, &sK[off]);
-        ldsm_x4_trans(bv, &sV[off]);
-        mma_bf16(s[2 * np], qf[ks], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], bk[2], bk[3]);
-        mma_bf16(ds[2 * np], of[ks], bv[0], bv[1]);
-        mma_bf16(ds[2 * np + 1], of[ks], bv[2], bv[3]);
-      }
+      wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sQw + 16 * ks * 64, 1024, 1024),
+                               wgmma_desc(sK + 16 * ks * 64, 1024, 1024), ks > 0);
+      wgmma_m64n64k16_ss<1, 1>(dp, wgmma_desc(sDOw + 16 * ks * 64, 1024, 1024),
+                               wgmma_desc(sV + 16 * ks * 64, 1024, 1024), ks > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // p = exp2(s * scale * log2(e) - lse * log2(e)), 0 for keys >= kv_len;
+    // ds = p * (dp - D), in place of dp
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = n0 + 8 * nt + 2 * tq + (i % 2);
-        const float p = key >= kv_len ? 0.f : exp2f(s[nt][i] * scale_log2 - lse2[i / 2]);
-        ds[nt][i] = p * (ds[nt][i] - dr[i / 2]);
+        const float p = (tail && key >= kv_len)
+                            ? 0.f
+                            : fast_exp2(fmaf(s[nt][i], scale_log2, -lse2[i / 2]));
+        dp[nt][i] = p * (dp[nt][i] - dr[i / 2]);
       }
-    // dq += ds k: B from the [channel][key] tile
+
+    // dq += ds k: ds's accumulators of n-tiles 2kk, 2kk+1 are the A fragment
+    // of k-step kk (16 keys); B = the k tile, K-major, 32 bytes further per
+    // step
+    uint32_t af[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, ds[2 * kk], ds[2 * kk + 1]);
+    for (int kk = 0; kk < 4; ++kk) c_to_a(af[kk], dp[2 * kk], dp[2 * kk + 1]);
+    reg_fence(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t bk[4];
-        ldsm_x4(bk, &sK[(8 * (2 * dp + mi / 2) + mr) * kLdKB + 16 * kk + (mi % 2) * 8]);
-        mma_bf16(acc[2 * dp], a, bk[0], bk[1]);
-        mma_bf16(acc[2 * dp + 1], a, bk[2], bk[3]);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<0>(acc, af[kk], wgmma_desc(sK + 16 * kk, 0, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(af);
   }
 
-  // epilogue: scale, stage the [channel][query] tile, store coalesced
-  __syncthreads();
+  // epilogue: scale, stage the [channel][query] tiles in sQ (each
+  // warpgroup's own tile: its wgmmas reading sQw have completed), then
+  // 16-byte stores along queries
+  uint16_t* sO = sQ + wg * kTileElems;
 #pragma unroll
   for (int d = 0; d < 8; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ch = 8 * d + 2 * tq + (i % 2);
-      const int col = 16 * warp + g + 8 * (i / 2);
-      sX[ch * kLdQB + col] = BF16::store(acc[d][i] * scale);
+      const int col = 16 * (warp % 4) + g + 8 * (i / 2);
+      sO[swz(ch, col)] = BF16::store(acc[d][i] * scale);
     }
   __syncthreads();
   uint16_t* ob = dq + b * os.b + h * os.h;
-#pragma unroll 8
-  for (int i = 0; i < (kDh * kQBlk) / kThreads; ++i) {
+#pragma unroll
+  for (int i = 0; i < (kDh * kQBlk / 8) / kThreads; ++i) {
     const int e = i * kThreads + tid;
-    const int d = e / kQBlk;
-    const int t = e % kQBlk;
-    if (m0 + t < N) ob[static_cast<long long>(d) * N + m0 + t] = sX[d * kLdQB + t];
+    const int ch = e / (kQBlk / 8);
+    const int t = 8 * (e % (kQBlk / 8));
+    if (m0 + t < N)
+      *reinterpret_cast<uint4*>(ob + static_cast<long long>(ch) * N + m0 + t) =
+          *reinterpret_cast<const uint4*>(sQ + (t >> 6) * kTileElems + swz(ch, t & 63));
   }
 }
 
@@ -797,8 +718,8 @@ cudaError_t launch_smem(Kernel kernel, int smem, int (&allowed)[kMaxDevices], di
 //         dq directly and leaves dq_acc unused;
 // mode 1: two-pass dq (K4a); mode 2: two-pass dk, dv (K4b).
 // Returns cudaErrorInvalidValue for inputs the kernels do not take (the
-// Python wrapper checks the same and raises first); in bf16 mode 0, that is
-// any operand without 16-byte token rows (token stride 1, a token count and
+// Python wrapper checks the same and raises first); in bf16, that is any
+// operand without 16-byte token rows (token stride 1, a token count and
 // strides that are multiples of 8, 16-byte aligned bases).
 extern "C" int mhmr_flash_bwd_t(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* dd,
@@ -822,6 +743,13 @@ extern "C" int mhmr_flash_bwd_t(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool want_dq = mode != 2, want_dkv = mode != 1;
   if (dtype == kBFloat16) {
+    const Strides out4{out_stride_b, out_stride_h, N, 1};
+    const void* in_ptrs[] = {q, k, v, lse, dd, dq_acc};  // dq_acc: null outside mode 0
+    const void* do_ptr[] = {dout};
+    const void* out_ptrs[] = {mode == 1 ? dq : dk, mode == 1 ? dq : dv};
+    if (!rows16(B, H, N, st, in_ptrs, 6) || !rows16(B, H, N, sdo, do_ptr, 1) ||
+        !rows16(B, H, N, out4, out_ptrs, 2))
+      return cudaErrorInvalidValue;
     const uint16_t* qh = static_cast<const uint16_t*>(q);
     const uint16_t* kh = static_cast<const uint16_t*>(k);
     const uint16_t* vh = static_cast<const uint16_t*>(v);
@@ -830,28 +758,22 @@ extern "C" int mhmr_flash_bwd_t(const void* q, const void* k, const void* v,
     uint16_t* dvh = static_cast<uint16_t*>(dv);
     const dim3 kv_grid((N + kKeys - 1) / kKeys, B * H);
     if (mode == 0) {
-      const Strides out4{out_stride_b, out_stride_h, N, 1};
-      const void* ptrs[] = {q, k, v, lse, dd, dq_acc, dk, dv};
-      const void* do_ptr[] = {dout};
-      const void* out_ptr[] = {dk, dv};
-      if (!rows16(B, H, N, st, ptrs, 8) || !rows16(B, H, N, sdo, do_ptr, 1) ||
-          !rows16(B, H, N, out4, out_ptr, 2))
-        return cudaErrorInvalidValue;
       static int allowed[kMaxDevices] = {};
-      return launch_smem(flash_bwd_fused_bf16_kernel, kSmemFused, allowed, kv_grid, s, qh, kh,
-                         vh, oh, l, d, static_cast<float*>(dq_acc), dkh, dvh, H, N, kv_len, st,
-                         sdo, os, scale, scale_log2);
+      return launch_smem(flash_bwd_dkv_bf16_kernel<true>, smem_dkv(true), allowed, kv_grid, s,
+                         qh, kh, vh, oh, l, d, static_cast<float*>(dq_acc), dkh, dvh, H, N,
+                         kv_len, st, sdo, os, scale, scale_log2);
     }
-    if (want_dkv) {
+    if (mode == 2) {
       static int allowed[kMaxDevices] = {};
-      return launch_smem(flash_bwd_dkv_bf16_kernel, kSmemKV, allowed, kv_grid, s, qh, kh, vh,
-                         oh, l, d, dkh, dvh, H, N, kv_len, st, sdo, os, scale, scale_log2);
+      return launch_smem(flash_bwd_dkv_bf16_kernel<false>, smem_dkv(false), allowed, kv_grid,
+                         s, qh, kh, vh, oh, l, d, static_cast<float*>(nullptr), dkh, dvh, H, N,
+                         kv_len, st, sdo, os, scale, scale_log2);
     }
-    const dim3 grid((N + kQBlk - 1) / kQBlk, B * H);
-    flash_bwd_dq_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        qh, kh, vh, oh, l, d, static_cast<uint16_t*>(dq), H, N, kv_len, st, sdo, os, scale,
-        scale_log2);
-    return cudaGetLastError();
+    static int allowed[kMaxDevices] = {};
+    const dim3 q_grid((N + kQBlk - 1) / kQBlk, B * H);
+    return launch_smem(flash_bwd_dq_bf16_kernel, kSmemDq, allowed, q_grid, s, qh, kh, vh, oh,
+                       l, d, static_cast<uint16_t*>(dq), H, N, kv_len, st, sdo, os, scale,
+                       scale_log2);
   }
   if (dtype != kFloat32) return cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);

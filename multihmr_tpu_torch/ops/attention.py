@@ -22,12 +22,13 @@ Counterpart of ``multihmr_tpu/ops/attention.py``, in two layouts:
 
 On a CUDA tensor each entry launches its kernel; on a CPU tensor it runs the
 plain version. There is no fallback: a CUDA tensor a kernel does not take
-raises. The bf16 K1 and K3 take only 16-byte token rows (a token count and
-strides that are multiples of 8: :func:`padded_len`, :func:`_check_rows16`);
-their fp32 paths, K4a and K4b take any strides. The JAX standard entries'
-TPU tiling arguments (``block_q``, ``block_kv``, ``pad_to``, ``interpret``)
-and the ``N >= 1024`` flash threshold of its dispatchers are TPU tuning and
-are not ported: on CUDA ``attention_qkv`` takes K5 at every N.
+raises. The bf16 K1, K3, K4a and K4b take only 16-byte token rows (a token
+count and strides that are multiples of 8: :func:`padded_len`,
+:func:`_check_rows16`); their fp32 paths take any strides. The JAX standard
+entries' TPU tiling arguments (``block_q``, ``block_kv``, ``pad_to``,
+``interpret``) and the ``N >= 1024`` flash threshold of its dispatchers are
+TPU tuning and are not ported: on CUDA ``attention_qkv`` takes K5 at every
+N.
 """
 
 from __future__ import annotations
@@ -117,17 +118,18 @@ def _check_qkv(q, k, v, kv_len, what):
 
 
 def padded_len(n_tok: int) -> int:
-    """The token count the bf16 K1 and K3 take for ``n_tok`` true tokens:
-    rounded up to a multiple of 8 (16 bytes of bf16 per channel row)."""
+    """The token count the bf16 flash kernels take for ``n_tok`` true
+    tokens: rounded up to a multiple of 8 (16 bytes of bf16 per channel
+    row)."""
     return -(-n_tok // 8) * 8
 
 
 def _check_rows16(what, **tensors):
-    """The bf16 K1 and K3 copy their tiles as 16-byte rows of 8 tokens
-    (``cp.async``): each ``[B, H, Dh, N]`` operand needs token stride 1, a
-    token count and channel, head and batch strides that are multiples of 8,
-    and a 16-byte aligned base pointer; ``[B, H, N]`` fp32 rows (lse, D) a
-    16-byte aligned base. Nothing pads or copies here: the channels-major ViT
+    """The bf16 flash kernels (K1, K3, K4a, K4b) copy their tiles as 16-byte
+    rows of 8 tokens (``cp.async``): each ``[B, H, Dh, N]`` operand needs
+    token stride 1, a token count and channel, head and batch strides that
+    are multiples of 8, and a 16-byte aligned base pointer; ``[B, H, N]``
+    fp32 rows (lse, D) a 16-byte aligned base. Nothing pads or copies here: the channels-major ViT
     pre-pads its stream (models/vit.py), the standard stream's backward
     copies into a padded buffer."""
     for name, t in tensors.items():
@@ -137,10 +139,11 @@ def _check_rows16(what, **tensors):
                     or any(s % 8 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
         if bad:
             raise ValueError(
-                f"{what}: bf16 K1/K3 copy 16-byte token rows, so {name} needs token stride 1, "
-                f"a token count and channel/head/batch strides that are multiples of 8 and a "
-                f"16-byte aligned base (pre-pad the stream to a multiple of 8 tokens); got shape "
-                f"{tuple(t.shape)}, strides {t.stride()}, base {t.data_ptr() % 16} mod 16")
+                f"{what}: the bf16 flash kernels (K1, K3, K4a, K4b) copy 16-byte token rows, so "
+                f"{name} needs token stride 1, a token count and channel/head/batch strides "
+                f"that are multiples of 8 and a 16-byte aligned base (pre-pad the stream to a "
+                f"multiple of 8 tokens); got shape {tuple(t.shape)}, strides {t.stride()}, base "
+                f"{t.data_ptr() % 16} mod 16")
 
 
 def _flash_fwd_t_cuda(q, k, v, scale, kv_len):
@@ -198,14 +201,16 @@ def _flash_bwd_t_cuda(kernel, q, k, v, do, lse, dd, scale, kv_len, dq, dk, dv):
         if t.shape != (B, H, N) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{kernel}: lse and D must be contiguous fp32 [B, H, N]")
     mode = _BWD_MODES[kernel]
-    outs = [t for t, used in ((dq, mode != 2), (dk, mode != 1), (dv, mode != 1)) if used]
-    strides = {_out_strides(t, q.shape, kernel) for t in outs}
-    if len(strides) != 1 or any(t.dtype != q.dtype for t in outs):
+    outs = {name: t for name, t, used in (("dq", dq, mode != 2), ("dk", dk, mode != 1),
+                                          ("dv", dv, mode != 1)) if used}
+    strides = {_out_strides(t, q.shape, kernel) for t in outs.values()}
+    if len(strides) != 1 or any(t.dtype != q.dtype for t in outs.values()):
         raise ValueError(f"{kernel}: dq, dk and dv must share dtype and strides")
     (ob, oh), = strides
+    if q.dtype == torch.bfloat16:
+        _check_rows16(kernel, q=q, k=k, v=v, dO=do, lse=lse, D=dd, **outs)
     dq_acc = None
-    if mode == 0 and q.dtype == torch.bfloat16:  # K3 adds scaled fp32 partials here
-        _check_rows16(kernel, q=q, k=k, v=v, dO=do, dq=dq, dk=dk, dv=dv, lse=lse, D=dd)
+    if mode == 0 and q.dtype == torch.bfloat16:  # K3 adds scaled fp32 partials here,
         # by 64-query tile, rows padded to 68: one bulk add per partial
         dq_acc = torch.zeros((B, H, -(-N // 64), Dh, 68), dtype=torch.float32,
                              device=q.device)

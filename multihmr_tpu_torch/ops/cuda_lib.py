@@ -28,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -161,14 +162,13 @@ def build_variants(source: str, table: dict, tmp) -> dict:
     ``tmp``, all at once. Returns {variant: (library path, nvcc process)}."""
     src = (CSRC / source).read_text()
     builds = {}
-    for i, (name, subs) in enumerate(table.items()):
+    for name, subs in table.items():
         text = src
         for old, new in subs:
             if text.count(old) != 1:
                 raise ValueError(f"variant {name!r}: {old!r} is not once in {source}")
             text = text.replace(old, new)
-        d = Path(tmp) / f"{Path(source).stem}_{i}"
-        d.mkdir()
+        d = Path(tempfile.mkdtemp(prefix=f"{Path(source).stem}_", dir=tmp))
         shutil.copy(CSRC / "common.cuh", d)
         (d / source).write_text(text)
         builds[name] = (d / "lib.so", subprocess.Popen(

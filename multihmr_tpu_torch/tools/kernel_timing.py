@@ -4,28 +4,49 @@
     python -m multihmr_tpu_torch.tools.kernel_timing variants
     python -m multihmr_tpu_torch.tools.kernel_timing forward [--tp_mode heads|ring] [--ops 20]
     python -m multihmr_tpu_torch.tools.kernel_timing ptxas [NAME ...]
+    python -m multihmr_tpu_torch.tools.kernel_timing s1
+    python -m multihmr_tpu_torch.tools.kernel_timing rounding [--seeds 10]
 
 ``ab``: one turn per TREE, in the order given (old new new old for an A/B):
 a fresh process, run from that tree's root, builds that tree's kernels and
 runs its own ``chip_smoke.py`` phases 7 and 11 (the 896_L bf16 forward at
 batch 1 and the forward kernels' times; the backward kernels' times), then
-times that tree's K2 and K5 with this file's method (:func:`kernel_ms`) on
-the same inputs in every tree. A TREE is a checkout holding
+times that tree's K2, K5, K3, K4a and K4b with this file's method
+(:func:`kernel_ms`) on the same inputs in every tree. A TREE is a checkout holding
 ``chip_smoke.py`` and the port, e.g. the parent commit unpacked with
 ``git archive``.
 
-``variants``: K1, K3, K5 and K2 at the 896_L shapes ([1, 16, 64, 4104]
-with kv_len 4097 for K1 and K3, [1, 16, 4097, 64] views of the packed
-projection for K5, [1, 1024, 4104] for K2; bf16) against textual variants
-of their sources, each with one part of the work removed or done another
-way (``VARIANTS``), built beside the sound library with
-``cuda_lib.build_variants``; turns sound, variant, variant, sound for each,
-CUDA events with the host queued ahead. What a variant saves is what that
-part costs on the kernel's critical path.
+``variants``: K1, K3, K4a, K4b, K5 and K2 at the 896_L shapes
+([1, 16, 64, 4104] with kv_len 4097 for K1, K3, K4a and K4b,
+[1, 16, 4097, 64] views of the packed projection for K5, [1, 1024, 4104]
+for K2; bf16) against textual variants of their sources, each with one part
+of the work removed or done another way (``VARIANTS``), built beside the
+sound library with ``cuda_lib.build_variants``; turns sound, variant,
+variant, sound for each, CUDA events with the host queued ahead. What a
+variant saves is what that part costs on the kernel's critical path. K3 and
+K4b are one kernel (``flash_bwd_dkv_bf16_kernel<kDq>``), so an edit of
+their shared walk is timed at both modes of ``mhmr_flash_bwd_t``.
 
 ``ptxas``: build the kernels and print what ``-Xptxas -v`` said of each
 entry whose mangled name holds one of the NAMEs (default: every entry):
-registers, shared memory, spills; and every warning of the build.
+registers, shared memory, spills, each entry under the kernel it is
+(K1-K5, bf16 or fp32); and every warning of the build.
+
+``s1``: the 672_S fp32 train step at batch 2 (ViT cut to 4 blocks, as
+``chip_smoke.py`` phases 9 and 13) at LayerScale 0.5 on each stream: once
+on the CPU, twice on the card, once on the card with the flash kernels and
+K2 swapped for their plain versions (called on the CUDA tensors; the
+dispatch in ``ops/`` is untouched), and once on the card with the image
+changed by one part in 2^22. Each parameter's gradient is compared, as max
+|difference| over that gradient's largest magnitude, run against run,
+worst per ViT block and module.
+
+``rounding``: bf16 K3's and K4b's dk against the plain fp32 backward and
+against the plain backward with ds rounded to bf16 as the kernels (and the
+TPU kernel) round it, per seed, on the card tests' inputs: [2, 4, 64, 2312]
+views of one projection with junk (30.0) past kv_len 2305 and a random dO;
+and where the largest error sits, split into what the true and the pad
+queries add there.
 
 ``forward``: the 896_L bf16 forward at batch 1 on one stream (seeded random
 weights, a seeded random image): CUDA events around back-to-back forwards,
@@ -36,6 +57,7 @@ forward and the ``--ops`` kernels with the most device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -43,14 +65,17 @@ import tempfile
 
 import torch
 
-# (source, C entry) -> {variant: [(old, new), ...]}
+# (source, C entry, modes) -> {variant: [(old, new), ...]}; modes: the
+# modes of mhmr_flash_bwd_t a variant is timed at (K3 0, K4a 1, K4b 2; K3 and
+# K4b share their kernel's walk), None for the other entries
 _K5_EXP = "fast_exp2(s[nt][2 * r]"
 _K5_EXP1 = "fast_exp2(s[nt][2 * r + 1]"
 _K1_EXP = "fast_exp2(s[nt][2 * r]"
 _K1_EXP1 = "fast_exp2(s[nt][2 * r + 1]"
 _K3_EXP = "fast_exp2(fmaf(s[nt][i], scale_log2, -tLse[c] * kLog2e))"
+_K4A_EXP = "fast_exp2(fmaf(s[nt][i], scale_log2, -lse2[i / 2]))"
 VARIANTS = {
-    ("flash_fwd.cu", "mhmr_flash_fwd_t"): {
+    ("flash_fwd.cu", "mhmr_flash_fwd_t", None): {
         "exp2f (accurate) for ex2.approx": [
             (_K1_EXP, "exp2f(s[nt][2 * r]"), (_K1_EXP1, "exp2f(s[nt][2 * r + 1]"),
             ("fast_exp2(row_max[r] - mx)", "exp2f(row_max[r] - mx)")],
@@ -63,21 +88,43 @@ VARIANTS = {
         "no k/v copies after the first kStages - 1 tiles": [
             ("      if (jn < n_tiles) {", "      if (0 && jn < n_tiles) {")],
     },
-    ("flash_bwd.cu", "mhmr_flash_bwd_t"): {
+    ("flash_bwd.cu", "mhmr_flash_bwd_t", (0, 2)): {
         "exp2f (accurate) for ex2.approx": [(_K3_EXP, _K3_EXP.replace("fast_exp2", "exp2f"))],
         "no exp2": [(_K3_EXP, _K3_EXP.replace("fast_exp2", ""))],
         "no S^T/dP^T products": [
-            ("      wgmma_m64n64k16_ss<1, 1>(s, ", "      if (0) wgmma_m64n64k16_ss<1, 1>(s, "),
-            ("      wgmma_m64n64k16_ss<1, 1>(ds, ", "      if (0) wgmma_m64n64k16_ss<1, 1>(ds, ")],
+            ("      wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sKw",
+             "      if (0) wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sKw"),
+            ("      wgmma_m64n64k16_ss<1, 1>(ds, wgmma_desc(sVw",
+             "      if (0) wgmma_m64n64k16_ss<1, 1>(ds, wgmma_desc(sVw")],
+        "no S^T product": [("      wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sKw",
+                            "      if (0) wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sKw")],
+        "no dP^T product": [("      wgmma_m64n64k16_ss<1, 1>(ds, wgmma_desc(sVw",
+                             "      if (0) wgmma_m64n64k16_ss<1, 1>(ds, wgmma_desc(sVw")],
         "no dV/dK products": [
             ("      wgmma_m64n64k16<0>(dv_acc, ap[kk]", "      if (0) wgmma_m64n64k16<0>(dv_acc, ap[kk]"),
             ("      wgmma_m64n64k16<0>(dk_acc, as[kk]", "      if (0) wgmma_m64n64k16<0>(dk_acc, as[kk]")],
-        "no dq product": [("      wgmma_m64n32k16_ss<1, 0>(", "      if (0) wgmma_m64n32k16_ss<1, 0>(")],
-        "no dq bulk reduce": [("      bulk_reduce_add_f32(dqb", "      if (0) bulk_reduce_add_f32(dqb")],
         "no q/dO copies after the first tile": [
             ("    if (t + 1 < n_tiles)\n", "    if (0 && t + 1 < n_tiles)\n")],
     },
-    ("flash_fwd_std.cu", "mhmr_flash_fwd_std"): {
+    ("flash_bwd.cu", "mhmr_flash_bwd_t", (0,)): {
+        "no dq product": [("      wgmma_m64n32k16_ss<1, 0>(", "      if (0) wgmma_m64n32k16_ss<1, 0>(")],
+        "no dq bulk reduce": [("      bulk_reduce_add_f32(dqb", "      if (0) bulk_reduce_add_f32(dqb")],
+    },
+    ("flash_bwd.cu", "mhmr_flash_bwd_t", (1,)): {
+        "K4a exp2f (accurate) for ex2.approx": [
+            (_K4A_EXP, _K4A_EXP.replace("fast_exp2", "exp2f"))],
+        "K4a no exp2": [(_K4A_EXP, _K4A_EXP.replace("fast_exp2", ""))],
+        "K4a no S = q k^T product": [("      wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sQw",
+                                      "      if (0) wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(sQw")],
+        "K4a no dP = dO v^T product": [
+            ("      wgmma_m64n64k16_ss<1, 1>(dp, wgmma_desc(sDOw",
+             "      if (0) wgmma_m64n64k16_ss<1, 1>(dp, wgmma_desc(sDOw")],
+        "K4a no dq product": [("      wgmma_m64n64k16<0>(acc, af[kk]",
+                               "      if (0) wgmma_m64n64k16<0>(acc, af[kk]")],
+        "K4a no k/v copies after the first kStages - 1 tiles": [
+            ("      if (jn < n_tiles) {", "      if (0 && jn < n_tiles) {")],
+    },
+    ("flash_fwd_std.cu", "mhmr_flash_fwd_std", None): {
         "no S = q k^T product": [("    wgmma_m64n64k16_ss<0, 0>(s, ",
                                   "    if (0) wgmma_m64n64k16_ss<0, 0>(s, ")],
         "no P.V product": [("    wgmma_m64n64k16<1>(o, pf[kk]", "    if (0) wgmma_m64n64k16<1>(o, pf[kk]")],
@@ -93,7 +140,7 @@ VARIANTS = {
              "        if (j >= kStages) {\n          mbar_arrive(&full[st]);\n          continue;\n"
              "        }\n        mbar_expect_tx(&full[st], 2 * kTileBytes);\n")],
     },
-    ("layernorm_cm.cu", "mhmr_layernorm_cm"): {
+    ("layernorm_cm.cu", "mhmr_layernorm_cm", None): {
         "no variance pass": [
             ("  // variance of the centred values\n", "#if 0\n"),
             ("  for (int t = 0; t < V; ++t) acc[t] = rsqrtf(acc[t] / D + eps);",
@@ -173,10 +220,32 @@ def _inputs():
     return (q, k, v), xs
 
 
+def _bwd_inputs(attention):
+    """The 896_L bf16 inputs of K1, K3, K4a and K4b, seeded: q, k, v views
+    of one [1, 3 * 16 * 64, 4104] projection (kv_len 4097), o and lse of the
+    given module's forward, dO, D, and three output tensors. Returns
+    (q, k, v, o, lse, do, dd, outs)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = torch.randn((1, 3 * 16 * 64, 4104), device="cuda", generator=g).to(
+        torch.bfloat16).reshape(1, 3, 16, 64, 4104).unbind(1)
+    o, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=4097)
+    do = torch.randn(q.shape, device="cuda", generator=g).to(torch.bfloat16)
+    dd = (do.float() * o.float()).sum(2)
+    return q, k, v, o, lse, do, dd, [torch.empty_like(o) for _ in range(3)]
+
+
+def _bwd_call(attention, kernel, inputs):
+    """One launch of a backward kernel (K3, K4a or K4b) on ``inputs``."""
+    q, k, v, _, lse, do, dd, outs = inputs
+    return lambda: attention._flash_bwd_t_cuda(kernel, q, k, v, do, lse, dd, 64 ** -0.5, 4097,
+                                               *outs)
+
+
 def kernel_ms(attention, norm):
-    """K5 at [1, 16, 4097, 64] and K2 at [1, 1024, 4104] (one tensor, and 8
-    rotating inputs) through the given modules' wrappers, bf16, the host
-    queued ahead: lines of text."""
+    """K5 at [1, 16, 4097, 64], K2 at [1, 1024, 4104] (one tensor, and 8
+    rotating inputs), and K3, K4a, K4b at [1, 16, 64, 4104] with kv_len 4097,
+    through the given modules' wrappers, bf16, the host queued ahead: lines
+    of text."""
     (q, k, v), xs = _inputs()
     s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
     turn = [0]
@@ -188,9 +257,16 @@ def kernel_ms(attention, norm):
     k5 = _cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20, ahead_ms=2)
     k2 = _cuda_ms(lambda: norm.layernorm_cm(xs[0], s, b), iters=48, ahead_ms=5)
     k2_rot = _cuda_ms(rotating, iters=48, ahead_ms=5)
+    inputs = _bwd_inputs(attention)
+    bwd = {label: _cuda_ms(_bwd_call(attention, kernel, inputs), iters=10, ahead_ms=2)
+           for label, kernel in (("K3", attention.KERNEL_BWD), ("K4a", attention.KERNEL_BWD_DQ),
+                                 ("K4b", attention.KERNEL_BWD_DKV))}
     return [f"K5 [1,16,4097,64] bf16: {k5:.4f} ms",
             f"K2 [1,1024,4104] bf16: {k2_rot:.4f} ms over 8 rotating inputs, {k2:.4f} ms on one "
-            f"tensor (L2)"]
+            f"tensor (L2)",
+            "[1,16,64,4104] kv_len 4097 bf16: "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in bwd.items())
+            + f", K4a + K4b {bwd['K4a'] + bwd['K4b']:.4f} ms"]
 
 
 def variants() -> int:
@@ -198,43 +274,43 @@ def variants() -> int:
 
     card = _card()
     cuda_lib.build()
-    n = 4097
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = torch.randn((1, 3 * 16 * 64, n + 7), device="cuda", generator=g).to(
-        torch.bfloat16).reshape(1, 3, 16, 64, n + 7).unbind(1)
-    o, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=n)
-    do = torch.randn(q.shape, device="cuda", generator=g).to(torch.bfloat16)
-    dd = (do.float() * o.float()).sum(2)
-    outs = [torch.empty_like(o) for _ in range(3)]
+    inputs = _bwd_inputs(attention)
+    q, k, v = inputs[:3]
     (qs, ks, vs), xs = _inputs()
     s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
-    calls = {  # entry -> (call, shape, iters, ahead_ms)
-        "mhmr_flash_fwd_t": (lambda: attention._flash_fwd_impl_t(q, k, v, kv_len=n),
-                             "[1,16,64,4104] kv_len 4097", 20, 2),
-        "mhmr_flash_bwd_t": (lambda: attention._flash_bwd_t_cuda(
-            attention.KERNEL_BWD, q, k, v, do, lse, dd, 64 ** -0.5, n, *outs),
-            "[1,16,64,4104] kv_len 4097", 20, 2),
-        "mhmr_flash_fwd_std": (lambda: attention._flash_fwd_std(qs, ks, vs),
-                               "[1,16,4097,64]", 20, 2),
-        "mhmr_layernorm_cm": (lambda: norm.layernorm_cm(xs[0], s, b), "[1,1024,4104]", 48, 5),
+    flash = "[1,16,64,4104] kv_len 4097"
+    calls = {  # (entry, mode) -> (kernel, call, shape, iters, ahead_ms)
+        ("mhmr_flash_fwd_t", None): (
+            "K1", lambda: attention._flash_fwd_impl_t(q, k, v, kv_len=4097), flash, 20, 2),
+        ("mhmr_flash_bwd_t", 0): (
+            "K3", _bwd_call(attention, attention.KERNEL_BWD, inputs), flash, 20, 2),
+        ("mhmr_flash_bwd_t", 1): (
+            "K4a", _bwd_call(attention, attention.KERNEL_BWD_DQ, inputs), flash, 20, 2),
+        ("mhmr_flash_bwd_t", 2): (
+            "K4b", _bwd_call(attention, attention.KERNEL_BWD_DKV, inputs), flash, 20, 2),
+        ("mhmr_flash_fwd_std", None): (
+            "K5", lambda: attention._flash_fwd_std(qs, ks, vs), "[1,16,4097,64]", 20, 2),
+        ("mhmr_layernorm_cm", None): (
+            "K2", lambda: norm.layernorm_cm(xs[0], s, b), "[1,1024,4104]", 48, 5),
     }
     with tempfile.TemporaryDirectory() as tmp:
         builds = {key: cuda_lib.build_variants(key[0], table, tmp)
                   for key, table in VARIANTS.items()}
-        for (source, entry), table in builds.items():
-            fn, shape, iters, ahead = calls[entry]
+        for (source, entry, modes), table in builds.items():
             for name, build in table.items():
-                turns = []
-                for use in (False, True, True, False):
-                    if use:
-                        with cuda_lib.use_variant(name, build, entry):
+                for mode in modes or (None,):
+                    kern, fn, shape, iters, ahead = calls[(entry, mode)]
+                    turns = []
+                    for use in (False, True, True, False):
+                        if use:
+                            with cuda_lib.use_variant(name, build, entry):
+                                turns.append(_cuda_ms(fn, iters=iters, ahead_ms=ahead))
+                        else:
                             turns.append(_cuda_ms(fn, iters=iters, ahead_ms=ahead))
-                    else:
-                        turns.append(_cuda_ms(fn, iters=iters, ahead_ms=ahead))
-                sound, var = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-                print(f"{source} {shape} bf16, {name}: {var:.4f} ms against "
-                      f"{sound:.4f} sound (turns {'/'.join(f'{t:.4f}' for t in turns)}) "
-                      f"[{card}]", flush=True)
+                    sound, var = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                    print(f"{kern} ({source}) {shape} bf16, {name}: {var:.4f} ms against "
+                          f"{sound:.4f} sound (turns {'/'.join(f'{t:.4f}' for t in turns)}) "
+                          f"[{card}]", flush=True)
     return 0
 
 
@@ -258,6 +334,16 @@ def forward(tp_mode: str, top: int) -> int:
     return 0
 
 
+# substrings of the mangled entry names -> the kernel each entry is
+_ENTRY_KERNELS = {
+    "flash_fwd_t_bf16_kernel": "K1 bf16", "flash_fwd_t_f32_kernel": "K1 fp32",
+    "flash_bwd_dkv_bf16_kernelILb1": "K3 bf16", "flash_bwd_dkv_bf16_kernelILb0": "K4b bf16",
+    "flash_bwd_dq_bf16_kernel": "K4a bf16", "flash_bwd_dq_f32_kernel": "K3/K4a fp32 (dq)",
+    "flash_bwd_dkv_f32_kernel": "K3/K4b fp32 (dk, dv)", "flash_fwd_std_bf16_kernel": "K5 bf16",
+    "flash_fwd_std_f32_kernel": "K5 fp32", "layernorm_cm_kernel": "K2",
+}
+
+
 def ptxas(names) -> int:
     from multihmr_tpu_torch.ops import cuda_lib
 
@@ -267,8 +353,182 @@ def ptxas(names) -> int:
     for line in (cuda_lib.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             keep = not names or any(n in line for n in names)
+            if keep:
+                print("== " + next((k for s, k in _ENTRY_KERNELS.items() if s in line), "?"))
         if keep or "warning" in line.lower():
             print(line)
+    return 0
+
+
+def s1() -> int:
+    import dataclasses
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from multihmr_tpu_torch.config import VITS
+    from multihmr_tpu_torch.factory import build_model
+    from multihmr_tpu_torch.ops import attention, norm
+    from multihmr_tpu_torch.tools.train_smoke import synthetic_batch, train_config
+    from multihmr_tpu_torch.train import trainer
+    from multihmr_tpu_torch.train.trainer import make_train_step, to_device
+
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(train_config("multiHMR_672_S", max_people=4),
+                              compute_dtype="float32",
+                              vit_override=dataclasses.replace(VITS, depth=4, layerscale_init=0.5))
+    batch = synthetic_batch(2, cfg.max_people, cfg.img_size, seed=1)
+    nudged = dict(batch, image=batch["image"] * (1 + 2.0 ** -22))
+
+    def plain_bwd(q, k, v, o, lse, do, scale=None, kv_len=None, fused=True, out=None):
+        grads = attention.flash_bwd_reference_t(q, k, v, o, lse, do, scale, kv_len)
+        return grads if out is None else tuple(t.copy_(g) for t, g in zip(out, grads))
+
+    def plain_std(q, k, v, scale=None, out=None):
+        o, lse = attention.flash_fwd_reference(q, k, v, scale)
+        return (o, lse) if out is None else (out.copy_(o), lse)
+
+    plain = {  # each kernel of the fp32 train step -> its plain version
+        "K1": mock.patch.object(attention, "_flash_fwd_impl_t", attention.mha_reference_t),
+        "K3": mock.patch.object(attention, "_flash_bwd_impl_t", plain_bwd),
+        "K5": mock.patch.object(attention, "_flash_fwd_std", plain_std),
+        "K2": mock.patch.object(norm, "_layernorm_cm_fwd", norm.layernorm_cm_reference)}
+
+    def step(dev, tp_mode, data=batch, patches=(), threads=None):
+        """The step's gradients, its loss terms, the ViT's patch tokens z,
+        their gradient dz, each loss term's share of it (dz of the term),
+        and which ReLU units of the score head (mlp_classif) are active, as
+        the run's own device computes them."""
+        model = build_model("multiHMR_672_S", device=dev, seed=0, cfg=cfg, tp_mode=tp_mode)
+        train = make_train_step(model, torch.optim.SGD(model.net.parameters(), lr=0.0))
+        seen = {}
+        loss_fn = trainer.multihmr_loss
+
+        def hook(module, args, out):
+            z = out["patch_tokens"]
+            seen["z_live"] = z
+            seen["z"] = z.detach().double().cpu()
+            z.register_hook(lambda g: seen.__setitem__("dz", g.detach().double().cpu()))
+
+        def relu_hook(module, args, out):
+            x = args[0]
+            pre = F.linear(x, module.fc0.weight.to(x.dtype), module.fc0.bias.to(x.dtype))
+            seen["active"] = (pre > 0).cpu()
+
+        def loss_by_term(*args, **kwargs):
+            total, terms = loss_fn(*args, **kwargs)
+            for k in ("bce", "offset", "rotmat", "shape", "dist", "transl", "j3d", "v3d"):
+                g, = torch.autograd.grad(terms[k], seen["z_live"], retain_graph=True,
+                                         allow_unused=True)
+                seen[f"dz {k}"] = (torch.zeros(seen["z"].shape, dtype=torch.float64) if g is None
+                                   else g.detach().double().cpu())
+            return total, terms
+
+        n_threads = torch.get_num_threads()
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            stack.callback(model.net.backbone.register_forward_hook(hook).remove)
+            stack.callback(model.net.mlp_classif.register_forward_hook(relu_hook).remove)
+            stack.enter_context(mock.patch.object(trainer, "multihmr_loss", loss_by_term))
+            if threads:
+                torch.set_num_threads(threads)
+                stack.callback(torch.set_num_threads, n_threads)
+            terms = train(to_device(data, dev), 0)
+        grads = {k: p.grad.detach().double().cpu() for k, p in model.net.named_parameters()
+                 if p.grad is not None}
+        return grads, {k: float(v) for k, v in terms.items()}, seen
+
+    def group(name):
+        parts = name.split(".")
+        if "blocks" in parts:  # a ViT block
+            return "backbone block " + parts[parts.index("blocks") + 1]
+        return ".".join(parts[:2]) if parts[0] == "backbone" else parts[0]
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return ((a - b).abs().max() / max(b.abs().max().item(), 1e-30)).item()
+
+    streams = {"heads": ("K1", "K2", "K3"), "ring": ("K5", "K3")}
+    for tp_mode, kernels in streams.items():
+        runs = {"cpu": step("cpu", tp_mode), "cpu 1 thread": step("cpu", tp_mode, threads=1),
+                "card 1": step("cuda", tp_mode), "card 2": step("cuda", tp_mode),
+                "card plain": step("cuda", tp_mode, patches=[plain[k] for k in kernels]),
+                "card nudged": step("cuda", tp_mode, data=nudged),
+                "card plain nudged": step("cuda", tp_mode, data=nudged,
+                                          patches=[plain[k] for k in kernels])}
+        for k in kernels:
+            runs[f"card plain {k}"] = step("cuda", tp_mode, patches=[plain[k]])
+        pairs = [("cpu 1 thread", "cpu"), ("card 1", "cpu"), ("card 2", "card 1"),
+                 ("card plain", "cpu"), ("card plain", "card 1"), ("card nudged", "card 1"),
+                 ("card plain nudged", "card plain")]
+        pairs += [(f"card plain {k}", "card 1") for k in kernels]
+        names = [k for k in runs["cpu"][0] if runs["cpu"][0][k].abs().max() > 0]
+        errs = {pair: {k: rel(runs[pair[0]][0][k], runs[pair[1]][0][k]) for k in names}
+                for pair in pairs}
+        print(f"== S1, 672_S fp32 train step ({tp_mode}), batch 2, 4 blocks, LayerScale 0.5, "
+              f"{len(names)} parameters; each entry max |a - b| / max |b| [{card}]")
+        groups = sorted({group(k) for k in names}, key=lambda s: (not s.startswith("backbone"), s))
+        for a, b in pairs:
+            ra, rb = runs[a], runs[b]
+            print(f"{a} vs {b}: gradients worst {max(errs[(a, b)].values()):.3e} ("
+                  + ", ".join(f"{k} {errs[(a, b)][k]:.2e}" for k in
+                              sorted(errs[(a, b)], key=errs[(a, b)].get, reverse=True)[:3])
+                  + "); by group " + ", ".join(
+                      f"{gn} {max(e for k, e in errs[(a, b)].items() if group(k) == gn):.2e}"
+                      for gn in groups)
+                  + f"; score-head ReLU units active in one run only "
+                  f"{int((ra[2]['active'] != rb[2]['active']).sum())} of "
+                  f"{ra[2]['active'].numel()}"
+                  + f"; patch tokens z {rel(ra[2]['z'], rb[2]['z']):.2e}, dL/dz "
+                  f"{rel(ra[2]['dz'], rb[2]['dz']):.2e} (of the term "
+                  + ", ".join(f"{k[3:]} {rel(ra[2][k], rb[2][k]):.1e}" for k in ra[2]
+                              if k.startswith("dz ")) + "); loss terms "
+                  + ", ".join(f"{k} {rel(ra[1][k], rb[1][k]):.1e}" for k in rb[1]
+                              if rb[1][k] != 0), flush=True)
+    return 0
+
+
+def rounding(seeds: int) -> int:
+    from multihmr_tpu_torch.ops import attention
+
+    card = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, kv, scale = 2312, 2305, 64 ** -0.5
+    keep = torch.arange(n, device="cuda") < kv
+
+    def rel(a, b):
+        return ((a.float() - b.float())[..., :kv].abs().max()
+                / b.float()[..., :kv].abs().max()).item()
+
+    for seed in range(seeds):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        qkv = torch.randn((2, 3 * 4 * 64, n), device="cuda", generator=g).to(torch.bfloat16)
+        qkv[..., kv:] = 30.0
+        q, k, v = qkv.reshape(2, 3, 4, 64, n).unbind(1)
+        o, lse = attention.mha_reference_t(q, k, v, kv_len=kv)
+        do = torch.randn(q.shape, device="cuda", generator=g).to(torch.bfloat16)
+        ref = attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=kv)[1]
+        k3, k4b = (attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv, fused=f)[1]
+                   for f in (True, False))
+        qf = q.float()
+        s = torch.einsum("bhdn,bhdm->bhnm", qf, k.float()) * scale
+        p = torch.exp(s.masked_fill(~keep, float("-inf")) - lse[..., None])
+        dp = torch.einsum("bhdn,bhdm->bhnm", do.float(), v.float())
+        ds = (p * (dp - (do.float() * o.float()).sum(2)[..., None])).to(torch.bfloat16).float()
+        emu = (torch.einsum("bhnm,bhdn->bhdm", ds, qf) * scale).to(torch.bfloat16)
+        err = (k4b.float() - ref.float())[..., :kv].abs()
+        b, h, d, m = (int(i) for i in torch.unravel_index(err.argmax(), err.shape))
+        part = lambda sl: (scale * (ds[b, h, sl, m] * qf[b, h, d, sl]).sum()).item()  # noqa: E731
+        print(f"seed {seed}: dk max err / max |dk| K3 {rel(k3, ref):.4f}, K4b {rel(k4b, ref):.4f}, "
+              f"plain with ds in bf16 {rel(emu, ref):.4f}; K4b against it {rel(k4b, emu):.4f}; "
+              f"largest error at (b {b}, h {h}, ch {d}, key {m}): K4b "
+              f"{k4b[b, h, d, m].item():.5f}, "
+              f"plain {ref[b, h, d, m].item():.5f}, of which true queries "
+              f"{part(slice(0, kv)):.5f} and pad queries {part(slice(kv, n)):.5f} [{card}]",
+              flush=True)
     return 0
 
 
@@ -277,12 +537,16 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("ab", help="phases 7 and 11 of each tree in turn")
     p.add_argument("trees", nargs="+")
-    sub.add_parser("variants", help="K1, K3, K5 and K2 against textual variants")
+    sub.add_parser("variants", help="K1, K3, K4a, K4b, K5 and K2 against textual variants")
     p = sub.add_parser("forward", help="time and profile the 896_L forward")
     p.add_argument("--tp_mode", default="heads", choices=("heads", "ring"))
     p.add_argument("--ops", type=int, default=20)
     p = sub.add_parser("ptxas", help="ptxas's registers, shared memory and spills per kernel")
     p.add_argument("names", nargs="*")
+    sub.add_parser("s1", help="the 672_S fp32 train step's gradients, card against CPU")
+    p = sub.add_parser("rounding", help="bf16 dk against the plain backward, with and "
+                                        "without ds rounded to bf16")
+    p.add_argument("--seeds", type=int, default=10)
     sub.add_parser("_turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -296,6 +560,10 @@ def main(argv=None) -> int:
         return variants()
     if args.cmd == "ptxas":
         return ptxas(args.names)
+    if args.cmd == "s1":
+        return s1()
+    if args.cmd == "rounding":
+        return rounding(args.seeds)
     return forward(args.tp_mode, args.ops)
 
 

@@ -95,3 +95,58 @@ def test_rows16_rule(case, ok):
     else:
         with pytest.raises(ValueError, match="multiples of 8"):
             tatt._check_rows16("K1", q=q)
+
+
+ROWS16_CASES = ["aligned", "odd token count", "odd channel stride", "token stride 2",
+                "base not 16-byte aligned"]
+
+
+def _rows16_case(case, n_tok=112):
+    buf = torch.zeros((2, 3, 4, 64, n_tok), dtype=torch.bfloat16)
+    return {"aligned": buf[:, 0, ..., :104],
+            "odd token count": buf[:, 0, ..., :97],
+            "odd channel stride": torch.zeros((2, 4, 64, 105), dtype=torch.bfloat16)[..., :104],
+            "token stride 2": buf[:, 0, ..., ::2],
+            "base not 16-byte aligned": buf[:, 0, ..., 1:105]}[case]
+
+
+@pytest.mark.parametrize("kernel", [tatt.KERNEL_BWD_DQ, tatt.KERNEL_BWD_DKV])
+@pytest.mark.parametrize("case", ROWS16_CASES)
+def test_rows16_rule_two_pass(kernel, case):
+    """The bf16 K4a and K4b copy 16-byte token rows too, under K1's and
+    K3's rule and message, which names the kernel's entry and every kernel
+    the rule binds."""
+    q = _rows16_case(case)
+    if case == "aligned":
+        tatt._check_rows16(kernel, q=q)
+        return
+    with pytest.raises(ValueError, match="multiples of 8") as err:
+        tatt._check_rows16(kernel, q=q)
+    assert kernel in str(err.value) and "K4a" in str(err.value) and "K4b" in str(err.value)
+
+
+class _LibraryReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("kernel", [tatt.KERNEL_BWD, tatt.KERNEL_BWD_DQ, tatt.KERNEL_BWD_DKV])
+@pytest.mark.parametrize("case", ROWS16_CASES)
+def test_bwd_checks_rows_before_the_library(kernel, case, monkeypatch):
+    """Every bf16 mode of the backward entry (K3, K4a, K4b) checks the row
+    rule before it reaches cuda_lib: on tensors that break it, it raises the
+    rule and never loads the library; on aligned ones it goes on to it. The
+    wrapper reads only shapes, strides and pointers, so CPU tensors do."""
+    def library():
+        raise _LibraryReached
+    monkeypatch.setattr(cuda_lib, "library", library)
+    q = _rows16_case(case)
+    B, H, _, N = q.shape
+    lse, dd = torch.zeros((B, H, N)), torch.zeros((B, H, N))
+    outs = [torch.empty(q.shape, dtype=q.dtype) for _ in range(3)]
+    args = (q, q, q, q, lse, dd, 0.125, N, *outs)
+    if case == "aligned":
+        with pytest.raises(_LibraryReached):
+            tatt._flash_bwd_t_cuda(kernel, *args)
+    else:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tatt._flash_bwd_t_cuda(kernel, *args)

@@ -20,12 +20,15 @@ Flash backward (K3, K4a + K4b) against the plain fp32 backward on the same
 inputs, each gradient's max error relative to its largest magnitude: fp32
 1e-4 (fp32 sums in other orders, dq's by atomic adds in a varying order);
 bf16 1e-2 (the kernels round p and ds to bf16 before their products, as the
-TPU kernels do, and the outputs to bf16: 2^-9 relative each).
+TPU kernels do, and the outputs to bf16: 2^-9 relative each). The two-pass
+K4a + K4b is the deterministic backward: two calls give bitwise-equal
+gradients.
 
-The bf16 K1 and K3 take only 16-byte token rows (a token count and strides
-that are multiples of 8): their cases run at the ViT's pre-padded lengths
-with junk past kv_len, (104, 97), (2312, 2305) and (640, 577); the fp32
-paths and K4a/K4b take any stride and keep odd token counts. K2 takes only
+The bf16 K1, K3, K4a and K4b take only 16-byte token rows (a token count
+and strides that are multiples of 8): their cases run at the ViT's
+pre-padded lengths with junk past kv_len, (104, 97), (2312, 2305) and
+(640, 577), and an odd token count or channel stride raises; the fp32 paths
+take any stride and keep odd token counts. K2 takes only
 16-byte channel rows too: its cases run at aligned token counts (336 and
 the 672 px stream's 2,312) at D = 128, 384 and 1024; an odd count or a
 misaligned base raises.
@@ -89,19 +92,34 @@ def test_flash_attention_kernel(dev, dtype, n, kv_len):
     _check_fwd(out[..., :lim], lse[..., :lim], ref_out[..., :lim], ref_lse[..., :lim])
 
 
-@pytest.mark.parametrize("entry", ["K1", "K3"])
+@pytest.mark.parametrize("entry", ["K1", "K3", "K4a", "K4b"])
 def test_bf16_flash_rejects_unaligned_rows(dev, entry):
-    """bf16 K1 and K3 copy 16-byte token rows: an odd channel stride (a view
-    of a [.., 64, 105] buffer) raises, naming the rule; nothing pads."""
+    """bf16 K1, K3, K4a and K4b copy 16-byte token rows: an odd channel
+    stride (a view of a [.., 64, 105] buffer) raises, naming the rule;
+    nothing pads."""
     buf = torch.zeros((1, 3, 2, 64, 105), device=dev, dtype=torch.bfloat16)
     q, k, v = buf[..., :104].unbind(1)
+    lse = torch.zeros((1, 2, 104), device=dev)
+    kernel = {"K3": attention.KERNEL_BWD, "K4a": attention.KERNEL_BWD_DQ,
+              "K4b": attention.KERNEL_BWD_DKV}.get(entry)
     cuda_lib.reset_launches()
     with pytest.raises(ValueError, match="multiples of 8"):
         if entry == "K1":
             attention._flash_fwd_impl_t(q, k, v)
         else:
-            lse = torch.zeros((1, 2, 104), device=dev)
-            attention._flash_bwd_impl_t(q, k, v, q, lse, q)
+            outs = [torch.empty((1, 2, 64, 104), device=dev, dtype=q.dtype) for _ in range(3)]
+            attention._flash_bwd_t_cuda(kernel, q, k, v, q, lse, lse, 0.125, 104, *outs)
+    assert not cuda_lib.LAUNCHES
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_bf16_backward_rejects_odd_token_count(dev, fused):
+    """An odd N (97 tokens, 194-byte rows) raises in bf16 on either backward
+    path (K3; K4a + K4b): pre-pad the stream to a multiple of 8 tokens."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, torch.bfloat16, 97, None)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention._flash_bwd_impl_t(q, k, v, o, lse, do, fused=fused)
     assert not cuda_lib.LAUNCHES
 
 
@@ -240,19 +258,18 @@ def _rel(a, b):
     return _max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
 
 
-# K3 and K4a + K4b on FLASH_CASES; K4a + K4b alone in bf16 at odd lengths
-@pytest.mark.parametrize("dtype,n,kv_len", FLASH_CASES + [
-    (torch.bfloat16, n, kv) for n, kv in ((97, None), (2305, None))])
-def test_flash_backward_kernels(dev, dtype, n, kv_len):
-    q, k, v, o, lse, do = _bwd_inputs(dev, dtype, n, kv_len)
+# K3 and K4a + K4b on FLASH_CASES (seed 0), and again in bf16 at the
+# pre-padded lengths on other inputs (seed 1)
+@pytest.mark.parametrize("dtype,n,kv_len,seed", [(*c, 0) for c in FLASH_CASES] + [
+    (torch.bfloat16, n, kv, 1) for n, kv in ((104, 97), (2312, 2305))])
+def test_flash_backward_kernels(dev, dtype, n, kv_len, seed):
+    q, k, v, o, lse, do = _bwd_inputs(dev, dtype, n, kv_len, seed=seed)
     ref = attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=kv_len)
-    with_k3 = dtype == torch.float32 or n % 8 == 0
     cuda_lib.reset_launches()
-    runs = [attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=False)]
-    if with_k3:
-        runs.append(attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=True))
+    runs = [attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=fused)
+            for fused in (False, True)]
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD] == int(with_k3)
+    assert cuda_lib.LAUNCHES[attention.KERNEL_BWD] == 1
     assert cuda_lib.LAUNCHES[attention.KERNEL_BWD_DQ] == 1
     assert cuda_lib.LAUNCHES[attention.KERNEL_BWD_DKV] == 1
     for grads in runs:
@@ -273,6 +290,35 @@ def test_flash_backward_into_packed_gradient(dev):
         assert a.data_ptr() == b.data_ptr()
         # dk, dv equal; dq may differ by a bf16 ulp (atomic adds in another order)
         assert _rel(b, c) <= BWD_TOL[torch.bfloat16]
+
+
+def test_two_pass_backward_is_deterministic(dev):
+    """K4a + K4b at batch 2 into one packed [B, 3, H, 64, N] gradient (the
+    training path's layout), NaN before the call: two calls give the same
+    bits and write every lane; dk and dv are K3's bits (K4b is K3's kernel
+    without the dq partial) and dq is K3's within the bf16 limit (K3 adds its
+    dq in another order).
+
+    (These inputs hold the two paths to each other, not to the plain
+    backward: their pad queries carry junk q = 30 and a random dO, which
+    the ViT never gives them, and the rounding of ds to bf16 that both
+    kernels share with the TPU kernel puts their dk 1.5e-2 of its largest
+    value from the fp32 plain backward here, beyond the 1e-2 limit that
+    test_flash_backward_kernels holds on other seeds.)"""
+    n, kv_len = 2312, 2305
+    q, k, v, o, lse, do = _bwd_inputs(dev, torch.bfloat16, n, kv_len, seed=2)
+    packed = [torch.full((2, 3) + q.shape[1:], float("nan"), dtype=q.dtype, device=dev)
+              for _ in range(2)]
+    for buf in packed:
+        attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=False,
+                                    out=buf.unbind(1))
+    fused = attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=kv_len, fused=True)
+    torch.cuda.synchronize()
+    assert torch.equal(packed[0].view(torch.int16), packed[1].view(torch.int16))
+    assert not packed[0].isnan().any()
+    dq, dk, dv = packed[0].unbind(1)
+    assert torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
+    assert _rel(dq[..., :kv_len], fused[0][..., :kv_len]) <= BWD_TOL[torch.bfloat16]
 
 
 def test_tiny_slice_gpu_matches_cpu(dev):
