@@ -6,9 +6,12 @@ Builds the hand-written kernels from ``multihmr_tpu_torch/csrc`` and drives
 the port's paths with seeded random weights and the synthetic SMPL-X-sized
 body model: single-image ``multiHMR_896_L`` inference through the demo's
 per-image entry point, ``multiHMR_896_L`` training through ``Trainer.fit``,
-and the BEDLAM training CLI (``cli/train.py``) with its epoch-end BEDLAM and
-EHF evaluation, on the ViT's standard stream (``--tp_mode ring``, K5) and its
-channels-major one (``heads``, K1 and K2). Phases, one line each:
+the BEDLAM training CLI (``cli/train.py``) with its epoch-end BEDLAM and EHF
+evaluation, and the same entry points from seeded checkpoints in the
+reference ``multiHMR_*.pt`` layout (the demo's ``--ckpt``, the CLI's
+``--pretrained`` with its 3DPW evaluation), on the ViT's standard stream
+(``--tp_mode ring``, K5) and its channels-major one (``heads``, K1 and K2).
+Phases, one line each:
 
   1. the card, its name and power limit (nvidia-smi);
   2. the kernel build;
@@ -74,7 +77,27 @@ channels-major one (``heads``, K1 and K2). Phases, one line each:
      checkpoint, finite PVE on both valsets); ``--eval_only 1 --pretrained``
      of that checkpoint on EHF GT rewritten as its own predictions (24 K5 per
      image, recall 100, PA-PVE under 1 mm); then 2 steps with
-     ``--tp_mode heads`` (24 K1, 24 K3, 48 K2 per step).
+     ``--tp_mode heads`` (24 K1, 24 K3, 48 K2 per step);
+ 15. seeded state dicts in the reference ``multiHMR_*.pt`` layout (the
+     port's ``expected_reference_shapes``, LayerScale 0.5, a 37 x 37
+     pos-embed grid) for 672_S and 896_L, saved with their ``args``: their
+     size, ``torch.load`` and convert seconds; 672_S fp32 built from its
+     file, card against CPU on both streams (detections equal, outputs
+     within phase 5's 1e-3); 896_L through ``cli/demo.py --ckpt`` on three
+     images (heads: 24 K1 and 48 K2 per image, finite meshes, the demo's
+     p50 ms per image) and through the demo's per-image body on the ring
+     stream (24 K5, no K1 or K2);
+ 16. the training CLI's 3DPW evaluation from those files, in a temporary
+     directory with a seeded 3DPW sequence (3 frames of 1080 x 1920 JPEG,
+     a male and a female person whose GT is the evaluated model's own first
+     two predictions) and ``$SMPLX_DIR`` in the reference layout (synthetic
+     SMPL pkls, a sparse smplx2smpl [6890, 10475], J_regressor_h36m
+     [17, 6890]): 896_L bf16 ``--tp_mode ring --eval_only 1 --pretrained``
+     (finite PVE, PA-PVE, MPJPE, PA-MPJPE, recall 100, 24 K5 per image, the
+     eval's timings); 672_S fp32 on the card and on the CPU (the same
+     metrics within 1e-3 relative); then two 896_L training steps from the
+     same file (finite losses, 24 K3 per step) with the epoch-end 3DPW
+     evaluation of one frame.
 
 Then a JSON line of the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
@@ -1048,51 +1071,79 @@ def self_consistent_ehf(ckpt, tp_mode):
     os.remove(os.path.join("data", "ehf_test.pkl"))  # the dataset rebuilds its annotations
 
 
-def run_cli(cuda_lib, attention, norm):
-    """The training CLI at full width and depth: a ring run (4 steps, eval
-    of 2 BEDLAM + 2 EHF images) and a heads run (2 steps, eval of 1 EHF
-    image), each counted from 0 just before it, and between them an
-    ``--eval_only --pretrained`` run of the ring checkpoint on EHF GT made
-    from its own predictions. Returns the ring training run's launches."""
-    import contextlib
-    import io
-    import tempfile
-    from pathlib import Path
+class CountedCLI:
+    """Runs ``cli/train.py::main`` with the launches counted from 0 just
+    before the run and read just after it, and each train step's launches
+    and loss terms recorded (Trainer builds its step through
+    ``make_train_step``, which this wraps while in a ``with`` block)."""
 
-    from multihmr_tpu_torch.cli import train as train_cli
-    from multihmr_tpu_torch.train import trainer as trainer_mod
+    def __init__(self, cuda_lib, names, phase):
+        from multihmr_tpu_torch.train import trainer as trainer_mod
 
-    names = (attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL, attention.KERNEL_STD)
-    per_step, losses = [], []
-    make = trainer_mod.make_train_step
+        self.cuda_lib, self.names, self.phase = cuda_lib, names, phase
+        self.trainer_mod, self.make = trainer_mod, trainer_mod.make_train_step
+        self.per_step, self.losses = [], []
 
-    def counting_make(*args, **kwargs):  # Trainer builds its step through this
-        step = make(*args, **kwargs)
+    def __enter__(self):
+        def counting_make(*args, **kwargs):
+            step = self.make(*args, **kwargs)
 
-        def counted(batch, epoch):
-            before = dict(cuda_lib.LAUNCHES)
-            terms = step(batch, epoch)
-            per_step.append(tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names))
-            losses.append((float(terms["total"]), float(terms["finite"])))
-            return terms
-        return counted
+            def counted(batch, epoch):
+                before = dict(self.cuda_lib.LAUNCHES)
+                terms = step(batch, epoch)
+                self.per_step.append(tuple(self.cuda_lib.LAUNCHES[k] - before.get(k, 0)
+                                           for k in self.names))
+                self.losses.append((float(terms["total"]), float(terms["finite"])))
+                return terms
+            return counted
 
-    def cli(argv):
-        per_step.clear()
-        losses.clear()
+        self.trainer_mod.make_train_step = counting_make
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer_mod.make_train_step = self.make
+
+    def __call__(self, argv):
+        """(launches of the run, its stdout lines, seconds)."""
+        import contextlib
+        import io
+
+        from multihmr_tpu_torch.cli import train as train_cli
+
+        self.per_step.clear()
+        self.losses.clear()
         buf = io.StringIO()
-        cuda_lib.reset_launches()  # this run starts here
+        log(self.phase, "cli.train " + " ".join(argv))
+        self.cuda_lib.reset_launches()  # this run starts here
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
                 train_cli.main(argv)
         finally:
             for line in buf.getvalue().splitlines():
-                log(14, "  " + line)
-        launches = {k: cuda_lib.LAUNCHES[k] for k in names}  # read just after it
-        policy = next(ln for ln in buf.getvalue().splitlines() if ln.startswith("remat auto"))
+                log(self.phase, "  " + line)
+        launches = {k: self.cuda_lib.LAUNCHES[k] for k in self.names}  # read just after it
+        return launches, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def run_cli(cuda_lib, attention, norm):
+    """The training CLI at full width and depth: a ring run (4 steps, eval
+    of 2 BEDLAM + 2 EHF images) and a heads run (2 steps, eval of 1 EHF
+    image), each counted from 0 just before it, and between them an
+    ``--eval_only --pretrained`` run of the ring checkpoint on EHF GT made
+    from its own predictions. Returns the ring training run's launches."""
+    import tempfile
+    from pathlib import Path
+
+    names = (attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL, attention.KERNEL_STD)
+    counted_cli = CountedCLI(cuda_lib, names, 14)
+    per_step, losses = counted_cli.per_step, counted_cli.losses
+
+    def cli(argv):
+        launches, lines, secs = counted_cli(argv)
+        policy = next(ln for ln in lines if ln.startswith("remat auto"))
         policy = "none" if policy.endswith("no remat") else policy.rsplit("remat=", 1)[1]
-        return launches, policy, time.perf_counter() - t0
+        return launches, policy, secs
 
     def eval_metrics(name):
         recs = [json.loads(ln) for ln in open(os.path.join("logs", name, "metrics.jsonl"))]
@@ -1101,14 +1152,12 @@ def run_cli(cuda_lib, attention, norm):
     common = ["--backbone", "dinov2_vitl14", "--img_size", "896", "--n_devices", "1",
               "--batch_size", "2", "--max_people", "8", "--n_epoch", "1", "--nb_max_ckpt", "1"]
     cwd = os.getcwd()
-    trainer_mod.make_train_step = counting_make
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, counted_cli:
             os.chdir(tmp)
             write_datasets(Path(tmp))
             argv = common + ["--tp_mode", "ring", "--iter_per_epoch", "4", "--valset", "bedlam",
                              "ehf", "--val_n", "2", "2", "--name", "ring"]
-            log(14, "cli.train " + " ".join(argv))
             launches, policy, secs = cli(argv)
             want = STEP_LAUNCHES["ring"][policy]
             in_steps = [sum(c[i] for c in per_step) for i in range(len(names))]
@@ -1133,7 +1182,6 @@ def run_cli(cuda_lib, attention, norm):
             argv = common + ["--tp_mode", "ring", "--eval_only", "1", "--pretrained",
                              os.path.join("ckpts", "ring", "ckpt_000000.pt"), "--valset", "ehf",
                              "--name", "ring_self"]
-            log(14, "cli.train " + " ".join(argv))
             launches, _, secs = cli(argv)
             metrics = eval_metrics("ring_self")
             ok_s = (launches[attention.KERNEL_STD] == 48 and metrics["ehf-test-1/recall"] == 100.0
@@ -1144,7 +1192,6 @@ def run_cli(cuda_lib, attention, norm):
                     f"{'ok' if ok_s else 'FAIL'}")
             argv = common + ["--tp_mode", "heads", "--iter_per_epoch", "2", "--valset", "ehf",
                              "--val_n", "1", "--name", "heads"]
-            log(14, "cli.train " + " ".join(argv))
             launches, policy, secs = cli(argv)
             want = STEP_LAUNCHES["heads"][policy]
             ok_h = (len(per_step) == 2 and all(c == want for c in per_step)
@@ -1155,10 +1202,369 @@ def run_cli(cuda_lib, attention, norm):
                     f"{launches} {'ok' if ok_h else 'FAIL'}")
     finally:
         os.chdir(cwd)
-        trainer_mod.make_train_step = make
     if not (ok and ok_s and ok_h):
         raise AssertionError("training CLI check failed")
     return ring_launches
+
+
+def reference_state_dict(cfg, seed=0):
+    """A seeded state dict in the reference ``multiHMR_*.pt`` layout, from the
+    port's ``expected_reference_shapes``: unit normals scaled by fan_in^-0.5,
+    LayerNorms at 1 and 0, LayerScale LAYERSCALE (so the blocks move the
+    stream), a 37 x 37 DINOv2 pos-embed grid (resampled by the converter),
+    the score head's output bias at 0 (a drawn one can put every patch
+    below the detection threshold), and the head's depth output pinned to
+    1.5 (every person about 5 m away, so the synthetic bodies stand in front
+    of the camera)."""
+    from multihmr_tpu_torch.io.checkpoint import expected_reference_shapes
+
+    g = torch.Generator().manual_seed(seed)
+    wild = {"backbone.encoder.pos_embed": 1 + 37 * 37,
+            "x_attention_head.transformer.pos_embedding": 1}
+    sd = {}
+    for k, shape in sorted(expected_reference_shapes(cfg).items()):
+        shape = [wild[k] if d is None else d for d in shape]
+        if ".norm" in k or "norm1" in k or "norm2" in k:
+            t = torch.ones(shape) if k.endswith("weight") else torch.zeros(shape)
+        elif k.endswith("gamma"):
+            t = torch.full(shape, LAYERSCALE)
+        else:
+            t = torch.randn(shape, generator=g)
+            if k.endswith("weight") and len(shape) >= 2:
+                t /= float(np.prod(shape[1:])) ** 0.5
+        sd[k] = t
+    sd["mlp_classif.2.bias"].zero_()
+    sd["x_attention_head.deccam.weight"][0] = 0.0
+    sd["x_attention_head.deccam.bias"][0] = 0.0
+    sd["x_attention_head.init_cam"][0, 0] = 1.5
+    return sd
+
+
+def write_reference_ckpt(path, name, seed=0):
+    """torch.save of a reference-layout checkpoint for ``name`` with its
+    ``args`` namespace; returns (bytes, seconds)."""
+    import argparse
+
+    from multihmr_tpu_torch.config import named_config
+
+    cfg = named_config(name)
+    t0 = time.perf_counter()
+    args = argparse.Namespace(backbone=cfg.backbone, img_size=[cfg.img_size])
+    torch.save({"model_state_dict": reference_state_dict(cfg, seed), "args": args}, path)
+    return os.path.getsize(path), time.perf_counter() - t0
+
+
+def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attention,
+                       norm, card, tmp):
+    """Reference-layout multiHMR_672_S and multiHMR_896_L files: 672_S fp32
+    card against CPU on both streams; 896_L through the demo's ``--ckpt``
+    (heads) and its per-image body (ring), three images each. Returns the
+    two paths and the figures for the end lines."""
+    import contextlib
+    import io
+
+    from multihmr_tpu_torch.io.checkpoint import convert_reference_checkpoint
+
+    paths, figures = {}, {}
+    for name in ("multiHMR_672_S", "multiHMR_896_L"):
+        paths[name] = os.path.join(tmp, f"{name}.pt")
+        nbytes, secs = write_reference_ckpt(paths[name], name)
+        t0 = time.perf_counter()
+        ckpt = torch.load(paths[name], map_location="cpu", weights_only=False)
+        t_load = time.perf_counter() - t0
+        convert_reference_checkpoint(ckpt, named_config(name))
+        t_conv = time.perf_counter() - t0 - t_load
+        del ckpt
+        figures[name] = (nbytes, t_load, t_conv)
+        log(15, f"{name} reference checkpoint: {nbytes / 2**20:.1f} MiB written in {secs:.2f} s; "
+                f"torch.load {t_load:.2f} s, convert {t_conv:.2f} s (host) [{card}]")
+
+    cfg = dataclasses.replace(named_config("multiHMR_672_S"), compute_dtype="float32")
+    img = synthetic_image(7, 480, 640)
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    ok = True
+    for tp_mode in ("heads", "ring"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model("multiHMR_672_S", device=dev, cfg=cfg, tp_mode=tp_mode,
+                                checkpoint=paths["multiHMR_672_S"])
+            cuda_lib.reset_launches()  # this path's run starts here
+            outs[dev] = demo.predict(model, img)
+            torch.cuda.synchronize()
+            counts = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        a, b = outs["cpu"], outs["cuda"]
+        same_det = all(torch.equal(getattr(a["det"], f), getattr(b["det"], f).cpu())
+                       for f in ("rows", "cols", "valid"))
+        errs = {k: rel_err(a[k], b[k]) for k in ("scores", "loc", "dist", "rotvec", "v3d", "j2d")}
+        ok_s = (same_det and max(errs.values()) <= E2E_TOL and counts == E2E_LAUNCHES[tp_mode]
+                and int(b["det"].valid.sum()) > 0)
+        log(15, f"672_S fp32 from the reference file ({tp_mode}), card vs CPU: detections "
+                f"{'equal' if same_det else 'DIFFER'} ({int(b['det'].valid.sum())} persons), "
+                "rel errs " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {E2E_TOL:g}); card launches K1/K2/K5 {counts} {'ok' if ok_s else 'FAIL'}")
+        ok = ok and ok_s
+
+    img_dir = os.path.join(tmp, "demo_in")
+    os.makedirs(img_dir)
+    from PIL import Image
+
+    for i, (h, w) in enumerate([(480, 640), (800, 450), (896, 896)]):
+        Image.fromarray(synthetic_image(i, h, w)).save(os.path.join(img_dir, f"im{i}.png"))
+    # heads: the demo CLI itself, each image's launches counted around the
+    # per-image body it calls
+    per_image, run_image = [], demo.run_image
+
+    def counted(model, *args, **kwargs):
+        before = dict(cuda_lib.LAUNCHES)
+        out, persons = run_image(model, *args, **kwargs)
+        per_image.append((tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names),
+                          bool(torch.isfinite(out["v3d"]).all()), tuple(out["v3d"].shape)))
+        return out, persons
+
+    buf = io.StringIO()
+    demo.run_image = counted
+    cuda_lib.reset_launches()  # the demo's run starts here
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            demo.main(["--img_folder", img_dir, "--out_folder", os.path.join(tmp, "demo_out"),
+                       "--model_name", "multiHMR_896_L", "--ckpt", paths["multiHMR_896_L"],
+                       "--save_mesh", "1"])
+    finally:
+        demo.run_image = run_image
+    secs = time.perf_counter() - t0
+    whole = {k: cuda_lib.LAUNCHES[k] for k in names}  # read just after it
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(15, "  " + line)
+    summary = json.loads(lines[-1])
+    ok_h = (len(per_image) == 3 and not any("WARNING" in ln for ln in lines)
+            and all(c == (24, 48, 0) and fin and shp == (1, 16, 10475, 3)
+                    for c, fin, shp in per_image))
+    log(15, f"896_L bf16 demo --ckpt (heads), {secs:.1f} s with the load: per image "
+            f"K1/K2/K5 launches, finite, v3d shape {per_image}; whole run {whole}; p50 "
+            f"{summary['p50_image_ms']:.1f} ms per image [{card}] {'ok' if ok_h else 'FAIL'}")
+    figures["demo_p50_ms"] = summary["p50_image_ms"]
+    # ring: the demo's per-image body on a model built from the same file
+    model = build_model("multiHMR_896_L", device="cuda", tp_mode="ring",
+                        checkpoint=paths["multiHMR_896_L"])
+    cast_backbone_bf16(model.net)
+    ok_r = True
+    cuda_lib.reset_launches()  # the ring run starts here
+    for i in range(3):
+        img = np.asarray(Image.open(os.path.join(img_dir, f"im{i}.png")).convert("RGB"))
+        before = dict(cuda_lib.LAUNCHES)
+        out, persons = demo.run_image(model, img, f"im{i}", os.path.join(tmp, "demo_out"),
+                                      "ring")
+        c = tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names)
+        fin = bool(torch.isfinite(out["v3d"]).all())
+        ok_i = c == (0, 0, 24) and fin and len(persons) > 0
+        log(15, f"896_L bf16 ring image {i}: {len(persons)} persons, finite={fin}, launches "
+                f"K1/K2/K5 {c} {'ok' if ok_i else 'FAIL'}")
+        ok_r = ok_r and ok_i
+    del model
+    torch.cuda.empty_cache()
+    if not (ok and ok_h and ok_r):
+        raise AssertionError("reference checkpoint check failed")
+    return paths, figures
+
+
+def write_smpl_pkl(path, arrays, flip_shape=False):
+    """A synthetic SMPL in the official pkl layout (posedirs [V, 3, 207], a
+    scipy-sparse J_regressor, the root's parent as uint32 max)."""
+    import pickle
+
+    import scipy.sparse
+
+    V = arrays["v_template"].shape[0]
+    parents = arrays["parents"].astype(np.int64) % 2 ** 32
+    data = {"v_template": arrays["v_template"],
+            "shapedirs": -arrays["shapedirs"] if flip_shape else arrays["shapedirs"],
+            "posedirs": arrays["posedirs"].T.reshape(V, 3, -1),
+            "J_regressor": scipy.sparse.csc_matrix(arrays["J_regressor"]),
+            "weights": arrays["lbs_weights"],
+            "kintree_table": np.stack([parents, np.arange(len(parents))]).astype(np.uint32),
+            "f": arrays["faces"].astype(np.uint32)}
+    with open(path, "wb") as f:
+        pickle.dump(data, f, protocol=2)
+
+
+def write_3dpw_assets(smplx_dir, seed=0):
+    """$SMPLX_DIR in the reference layout: synthetic SMPL_{MALE,FEMALE}.pkl
+    (6,890 vertices, 24 joints), a sparse smplx2smpl [6890, 10475] (three
+    SMPL-X vertices per SMPL vertex) and J_regressor_h36m [17, 6890]. Returns
+    the SMPL arrays."""
+    import pickle
+
+    import scipy.sparse
+
+    from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(smplx_dir, "smpl"))
+    os.makedirs(os.path.join(smplx_dir, "smplx"))
+    smpl = synthetic_body_model(num_vertices=6890, num_joints=24, num_extra=0, num_lmk=0)
+    write_smpl_pkl(os.path.join(smplx_dir, "smpl", "SMPL_MALE.pkl"), smpl)
+    write_smpl_pkl(os.path.join(smplx_dir, "smpl", "SMPL_FEMALE.pkl"), smpl, flip_shape=True)
+    w = rng.random((6890, 3))
+    m = scipy.sparse.csr_matrix((
+        (w / w.sum(1, keepdims=True)).ravel(),
+        (np.repeat(np.arange(6890), 3), rng.integers(0, 10475, size=6890 * 3))),
+        shape=(6890, 10475))
+    with open(os.path.join(smplx_dir, "smplx", "smplx2smpl.pkl"), "wb") as f:
+        pickle.dump({"matrix": m}, f, protocol=2)
+    jr = rng.random((17, 6890))
+    np.save(os.path.join(smplx_dir, "smpl", "J_regressor_h36m.npy"),
+            (jr / jr.sum(1, keepdims=True)).astype(np.float32))
+    return smpl
+
+
+THREEDPW_FRAMES = 3
+
+
+def write_3dpw_tree(meta):
+    """data/3DPW: one test sequence of portrait 1080 x 1920 JPEG frames."""
+    import pickle
+
+    from PIL import Image
+
+    root = os.path.join("data", "3DPW")
+    os.makedirs(os.path.join(root, "sequenceFiles", "test"), exist_ok=True)
+    os.makedirs(os.path.join(root, "imageFiles", "seq0"), exist_ok=True)
+    with open(os.path.join(root, "sequenceFiles", "test", "seq0.pkl"), "wb") as f:
+        pickle.dump(meta, f, protocol=2)
+    for k in range(THREEDPW_FRAMES):
+        path = os.path.join(root, "imageFiles", "seq0", f"image_{k:05d}.jpg")
+        if not os.path.exists(path):
+            Image.fromarray(synthetic_image(400 + k, 1920, 1080)).save(path, quality=90)
+
+
+def self_consistent_3dpw(model, smpl):
+    """Write the 3DPW tree with two persons (male, female) per frame whose GT
+    is the model's own first two predictions: their first 24 rotations, zero
+    shape, the translation that puts the SMPL pelvis on the predicted one;
+    evaluating the same model must then find every GT person."""
+    from multihmr_tpu_torch.data.threedpw import THREEDPW
+
+    T = THREEDPW_FRAMES
+    meta = {"poses": [np.zeros((T, 72), np.float32) for _ in range(2)],
+            "trans": [np.tile(np.float32([0, 0, 5]), (T, 1)) for _ in range(2)],
+            "betas": [np.zeros(10, np.float32) for _ in range(2)],
+            "genders": ["m", "f"], "campose_valid": [np.ones(T)] * 2,
+            "cam_poses": np.tile(np.eye(4), (T, 1, 1)),
+            "cam_intrinsics": np.array([[1960.0, 0, 540], [0, 1960, 960], [0, 0, 1]])}
+    write_3dpw_tree(meta)
+    ds = THREEDPW(img_size=model.cfg.img_size, annotations_dir="scratch",
+                  smpl_dir=os.environ["SMPLX_DIR"], force_build_dataset=True)
+    pelvis_rest = smpl["J_regressor"][0] @ smpl["v_template"]
+    for k in range(T):
+        x, annot = ds[k]
+        with torch.inference_mode():
+            out = model.forward(torch.from_numpy(x[None]).cuda(),
+                                torch.from_numpy(annot["K"][None]).cuda(), det_thresh=0.2)
+        persons = model.extract_persons(out, fields=["rotvec", "transl_pelvis"])[0]
+        if len(persons) < 2:
+            raise AssertionError(f"3DPW frame {k}: {len(persons)} persons predicted, need 2")
+        for i in range(2):
+            meta["poses"][i][k] = persons[i]["rotvec"][:24].reshape(72)
+            meta["trans"][i][k] = persons[i]["transl_pelvis"].reshape(3) - pelvis_rest
+    write_3dpw_tree(meta)
+    if os.path.exists(os.path.join("data", "3dpw_test.pkl")):
+        os.remove(os.path.join("data", "3dpw_test.pkl"))  # the CLI rebuilds the annotations
+
+
+def run_3dpw_cli(build_model, cuda_lib, attention, norm, card, ckpts):
+    """The training CLI's 3DPW evaluation from reference checkpoints, in a
+    temporary directory with a seeded 3DPW tree and $SMPLX_DIR: 896_L bf16
+    ``--tp_mode ring``; 672_S fp32 on the card and on the CPU; then two
+    896_L training steps from the same ``--pretrained`` with the epoch-end
+    3DPW evaluation of one image."""
+    import ast
+    import tempfile
+    from pathlib import Path
+
+    from multihmr_tpu_torch.config import ModelConfig
+
+    names = (attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL, attention.KERNEL_STD)
+    counted_cli = CountedCLI(cuda_lib, names, 16)
+    per_step, losses = counted_cli.per_step, counted_cli.losses
+
+    def cli(argv):
+        launches, lines, secs = counted_cli(argv)
+        res = next(ast.literal_eval(ln.split(": ", 1)[1]) for ln in lines
+                   if ln.startswith("eval[3dpw-test]"))
+        return launches, res, secs
+
+    metric_keys = ("pve", "pa_pve", "mpjpe", "pa_mpjpe")
+    s_flags = ["--backbone", "dinov2_vits14", "--img_size", "672", "--amp", "0", "--n_devices",
+               "1", "--max_people", "8", "--eval_only", "1", "--valset", "3dpw", "--tp_mode",
+               "ring", "--pretrained", ckpts["multiHMR_672_S"]]
+    l_flags = ["--backbone", "dinov2_vitl14", "--img_size", "896", "--n_devices", "1",
+               "--max_people", "8", "--valset", "3dpw", "--tp_mode", "ring",
+               "--pretrained", ckpts["multiHMR_896_L"]]
+    cwd, env = os.getcwd(), os.environ.get("SMPLX_DIR")
+    try:
+        with tempfile.TemporaryDirectory() as tmp, counted_cli:
+            os.chdir(tmp)
+            os.environ["SMPLX_DIR"] = os.path.join(tmp, "models")
+            smpl = write_3dpw_assets(os.environ["SMPLX_DIR"])
+            # 896_L bf16, the CLI's configuration, GT from its own predictions
+            cfg = ModelConfig(backbone="dinov2_vitl14", img_size=896, max_people=8)
+            model = build_model(device="cuda", cfg=cfg, tp_mode="ring",
+                                checkpoint=ckpts["multiHMR_896_L"])
+            self_consistent_3dpw(model, smpl)
+            del model
+            launches, res, secs = cli(l_flags + ["--eval_only", "1", "--name", "l"])
+            ok = (launches == {attention.KERNEL: 0, attention.KERNEL_BWD: 0, norm.KERNEL: 0,
+                               attention.KERNEL_STD: 24 * THREEDPW_FRAMES}
+                  and all(np.isfinite(res[k]) for k in metric_keys)
+                  and res["recall"] == 100.0 and res["n_images"] == THREEDPW_FRAMES)
+            log(16, f"896_L bf16 ring 3DPW eval of {res['n_images']} frames from the reference "
+                    f"file ({secs:.1f} s with the load): "
+                    + ", ".join(f"{k} {res[k]:.4g}" for k in metric_keys + ("recall",))
+                    + f"; timings {res['timings']}; launches {launches} (want 24 K5 per "
+                    f"image) [{card}] {'ok' if ok else 'FAIL'}")
+            # 672_S fp32: GT from its own predictions, then the card against the CPU
+            cfg = ModelConfig(backbone="dinov2_vits14", img_size=672, max_people=8,
+                              compute_dtype="float32")
+            model = build_model(device="cuda", cfg=cfg, tp_mode="ring",
+                                checkpoint=ckpts["multiHMR_672_S"])
+            self_consistent_3dpw(model, smpl)
+            del model
+            runs = {dev: cli(s_flags + ["--device", dev, "--name", f"s_{dev}"])
+                    for dev in ("cuda", "cpu")}
+            a, b = runs["cpu"][1], runs["cuda"][1]
+            errs = {k: abs(b[k] - a[k]) / max(abs(a[k]), 1e-12) for k in metric_keys}
+            ok_s = (max(errs.values()) <= E2E_TOL and all(np.isfinite(b[k]) for k in metric_keys)
+                    and all(a[k] == b[k] for k in ("precision", "recall", "f1_score"))
+                    and b["recall"] == 100.0
+                    and runs["cuda"][0][attention.KERNEL_STD] == 12 * THREEDPW_FRAMES)
+            log(16, "672_S fp32 ring 3DPW eval, card vs CPU: "
+                    + ", ".join(f"{k} {b[k]:.6g} vs {a[k]:.6g} (rel {errs[k]:.1e})"
+                                for k in metric_keys)
+                    + f" (tol {E2E_TOL:g}); recall {b['recall']} vs {a['recall']}; card K5 "
+                    f"launches {runs['cuda'][0][attention.KERNEL_STD]} "
+                    f"{'ok' if ok_s else 'FAIL'}")
+            # two 896_L training steps from the same reference file
+            write_datasets(Path(tmp))
+            launches, res, secs = cli(l_flags + ["--batch_size", "2", "--iter_per_epoch", "2",
+                                                 "--n_epoch", "1", "--val_n", "1",
+                                                 "--nb_max_ckpt", "1", "--name", "t"])
+            ok_t = (len(per_step) == 2 and all(c[1] == 24 for c in per_step)
+                    and all(np.isfinite(t) and f == 1.0 for t, f in losses)
+                    and all(np.isfinite(res[k]) for k in metric_keys))
+            log(16, f"896_L ring training from the reference file ({secs:.1f} s): losses "
+                    + ", ".join(f"{t:.3f}" for t, _ in losses)
+                    + f"; launches per step K1/K3/K2/K5 {per_step} (want 24 K3); epoch-end "
+                    f"3DPW pve {res['pve']:.4g} {'ok' if ok_t else 'FAIL'}")
+    finally:
+        os.chdir(cwd)
+        if env is None:
+            os.environ.pop("SMPLX_DIR", None)
+        else:
+            os.environ["SMPLX_DIR"] = env
+    if not (ok and ok_s and ok_t):
+        raise AssertionError("3DPW CLI check failed")
 
 
 def main() -> int:
@@ -1214,8 +1620,20 @@ def main() -> int:
                         cast_backbone_bf16, cuda_lib, attention, norm, card)
     torch.cuda.empty_cache()
     cli_launches = phase(14, run_cli, cuda_lib, attention, norm)
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    try:
+        ref = phase(15, run_reference_ckpt, build_model, named_config, demo, cast_backbone_bf16,
+                    cuda_lib, attention, norm, card, tmp)
+        torch.cuda.empty_cache()
+        if ref is not None:
+            phase(16, run_3dpw_cli, build_model, cuda_lib, attention, norm, card, ref[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches):
+                          cli_launches, ref):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train

@@ -5,11 +5,13 @@ imports (``multihmr_tpu.bodymodel`` imports jax). Each loader returns a dict
 of arrays keyed like :class:`~multihmr_tpu_torch.bodymodel.core.BodyModel`;
 ``BodyModel.from_arrays`` puts them on a device. With the same seed,
 :func:`synthetic_body_model` gives the same arrays as the JAX package's.
+The SMPL pkls unpickle without chumpy (:class:`_TolerantUnpickler`).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -19,9 +21,40 @@ from multihmr_tpu_torch.bodymodel import constants
 SHAPE_SPACE_DIM = 300  # full SMPL-X shape space; num_betas slices into it
 
 
-def _dense(x) -> np.ndarray:
-    """Dense numpy from arrays or scipy sparse matrices."""
-    return np.asarray(x.toarray()) if hasattr(x, "toarray") else np.asarray(x)
+def _to_np(x) -> np.ndarray:
+    """Dense numpy from arrays, scipy sparse matrices (the J_regressors) and
+    chumpy arrays inside SMPL pkls."""
+    if hasattr(x, "toarray"):  # scipy sparse
+        return np.asarray(x.toarray())
+    if hasattr(x, "r"):  # chumpy
+        return np.asarray(x.r)
+    return np.asarray(x)
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    """Unpickle SMPL pkl files without chumpy installed: any missing module
+    resolves to a stub whose instances expose ``.r`` (their array)."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            class _Stub:
+                def __init__(self, *a, **k):
+                    pass
+
+                def __setstate__(self, state):
+                    self.__dict__.update(state if isinstance(state, dict) else {})
+
+                @property
+                def r(self):
+                    for key in ("x", "a", "_data"):
+                        if key in self.__dict__:
+                            return np.asarray(self.__dict__[key])
+                    raise ValueError("cannot extract array from stub pickle object")
+
+            _Stub.__name__ = name
+            return _Stub
 
 
 def load_smplx_npz(path: str, num_betas: int = 10, num_expression: int = 10) -> dict:
@@ -29,7 +62,7 @@ def load_smplx_npz(path: str, num_betas: int = 10, num_expression: int = 10) -> 
     expression dirs are shapedirs[..., 300:], or [..., 10:] in legacy
     20-column assets."""
     data = np.load(path, allow_pickle=True)
-    shapedirs = _dense(data["shapedirs"]).astype(np.float32)
+    shapedirs = _to_np(data["shapedirs"]).astype(np.float32)
     if shapedirs.shape[-1] >= SHAPE_SPACE_DIM:
         exprdirs = shapedirs[..., SHAPE_SPACE_DIM:SHAPE_SPACE_DIM + num_expression]
     else:
@@ -38,23 +71,62 @@ def load_smplx_npz(path: str, num_betas: int = 10, num_expression: int = 10) -> 
                 f"num_betas={num_betas} needs the {SHAPE_SPACE_DIM}-column SMPL-X "
                 f"shape space; this legacy asset has {shapedirs.shape[-1]} columns")
         exprdirs = shapedirs[..., 10:10 + num_expression]
-    posedirs = _dense(data["posedirs"]).astype(np.float32)
+    posedirs = _to_np(data["posedirs"]).astype(np.float32)
     V = posedirs.shape[0]
-    parents = _dense(data["kintree_table"])[0].astype(np.int64)
+    parents = _to_np(data["kintree_table"])[0].astype(np.int64)
     parents[0] = -1
     return {
-        "v_template": _dense(data["v_template"]).astype(np.float32),
+        "v_template": _to_np(data["v_template"]).astype(np.float32),
         "shapedirs": shapedirs[..., :num_betas],
         "exprdirs": exprdirs,
         "posedirs": posedirs.reshape(V * 3, -1).T,
-        "J_regressor": _dense(data["J_regressor"]).astype(np.float32),
-        "lbs_weights": _dense(data["weights"]).astype(np.float32),
+        "J_regressor": _to_np(data["J_regressor"]).astype(np.float32),
+        "lbs_weights": _to_np(data["weights"]).astype(np.float32),
         "parents": parents.astype(np.int32),
         "extra_joint_vertex_ids": np.asarray(constants.extra_joint_vertex_ids("smplx"), np.int32),
-        "faces": _dense(data["f"]).astype(np.int32),
-        "lmk_faces_idx": _dense(data["lmk_faces_idx"]).astype(np.int32),
-        "lmk_bary_coords": _dense(data["lmk_bary_coords"]).astype(np.float32),
+        "faces": _to_np(data["f"]).astype(np.int32),
+        "lmk_faces_idx": _to_np(data["lmk_faces_idx"]).astype(np.int32),
+        "lmk_bary_coords": _to_np(data["lmk_bary_coords"]).astype(np.float32),
     }
+
+
+def load_smpl_pkl(path: str, num_betas: int = 10) -> dict:
+    """Official ``SMPL_{GENDER}.pkl`` (6,890 vertices, 24 joints), the 3DPW
+    ground truth's body model (reference train.py:42-43): the 21 vertex
+    keypoints of the SMPL topology, no expression and no landmarks."""
+    with open(path, "rb") as f:
+        data = _TolerantUnpickler(f, encoding="latin1").load()
+    posedirs = _to_np(data["posedirs"]).astype(np.float32)
+    V = posedirs.shape[0]
+    parents = _to_np(data["kintree_table"])[0].astype(np.int64)
+    parents[0] = -1
+    return {
+        "v_template": _to_np(data["v_template"]).astype(np.float32),
+        "shapedirs": _to_np(data["shapedirs"]).astype(np.float32)[..., :num_betas],
+        "exprdirs": np.zeros((V, 3, 0), np.float32),
+        "posedirs": posedirs.reshape(V * 3, -1).T,
+        "J_regressor": _to_np(data["J_regressor"]).astype(np.float32),
+        "lbs_weights": _to_np(data["weights"]).astype(np.float32),
+        "parents": parents.astype(np.int32),
+        "extra_joint_vertex_ids": np.asarray(constants.extra_joint_vertex_ids("smpl"), np.int32),
+        "faces": _to_np(data["f"]).astype(np.int32),
+        "lmk_faces_idx": np.zeros((0,), np.int32),
+        "lmk_bary_coords": np.zeros((0, 3), np.float32),
+    }
+
+
+def load_smplx2smpl(path: str) -> np.ndarray:
+    """The 10475 → 6890 vertex regressor of the 3DPW evaluation (reference
+    train.py:44-45; ``smplx2smpl.pkl`` holds a scipy sparse 'matrix')."""
+    with open(path, "rb") as f:
+        data = _TolerantUnpickler(f, encoding="latin1").load()
+    m = data["matrix"] if isinstance(data, dict) else data
+    return _to_np(m).astype(np.float32)
+
+
+def load_j_regressor_h36m(path: str) -> np.ndarray:
+    """``J_regressor_h36m.npy`` [17, 6890] (reference train.py:400)."""
+    return np.load(path).astype(np.float32)
 
 
 def synthetic_body_model(

@@ -85,3 +85,9 @@ EXTRA_JOINT_ORDER = [
 def extra_joint_vertex_ids(model_type: str):
     table = VERTEX_IDS[model_type]
     return [table[name] for name in EXTRA_JOINT_ORDER]
+
+
+# H36M 17-joint regressor selection used for 3DPW MPJPE (reference
+# train.py:397-429): H36M_TO_J14 keeps the first 14 of the 17 reordered.
+H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
+H36M_TO_J14 = H36M_TO_J17[:14]

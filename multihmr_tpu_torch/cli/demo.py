@@ -2,13 +2,14 @@
 
 Usage:
     python -m multihmr_tpu_torch.cli.demo --img_folder imgs --out_folder out \
-        --model_name multiHMR_896_L [--device cuda] [--det_thresh 0.3] \
-        [--nms_kernel_size 3] [--fov 60] [--save_mesh 1]
+        --model_name multiHMR_896_L [--ckpt multiHMR_896_L.pt] [--device cuda] \
+        [--det_thresh 0.3] [--nms_kernel_size 3] [--fov 60] [--save_mesh 1]
 
 For each image it writes ``<name>_<model>.json`` (the detected persons) and,
 with ``--save_mesh``, ``<name>_<model>.npy`` (their vertices ``[P, V, 3]``).
-The weights are seeded random ones: checkpoint loading (``--ckpt``) and the
-overlay rendering flags of the JAX demo are not ported yet and are refused.
+``--ckpt`` converts a reference ``multiHMR_*.pt`` on the fly; without it the
+weights are seeded random ones (for pipeline checks only). The overlay
+rendering flags of the JAX demo are not ported yet and are refused.
 :func:`run_image` is the per-image body; it takes a decoded uint8 array, so
 other drivers run exactly the demo's path.
 """
@@ -81,8 +82,6 @@ def main(argv=None):
     parser.add_argument("--save_rotating_video", type=int, default=0)
     parser.add_argument("--alpha", type=float, default=0.75)
     args = parser.parse_args(argv)
-    if args.ckpt is not None:
-        parser.error("--ckpt is not ported yet: the port runs seeded random weights")
     for flag in _RENDER_FLAGS:
         if getattr(args, flag):
             parser.error(f"--{flag} needs the overlay renderer, which is not ported yet")
@@ -96,9 +95,10 @@ def main(argv=None):
         # fp32 geometry as the JAX package's precision=HIGHEST: no TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model = build_model(args.model_name, device=args.device, seed=0)
-    print("WARNING: no checkpoint given — running with random weights")
-    cast_backbone_bf16(model.net)  # inference: bf16 weight storage
+    model = build_model(args.model_name, device=args.device, seed=0, checkpoint=args.ckpt)
+    if args.ckpt is None:
+        print("WARNING: no checkpoint given — running with random weights")
+    cast_backbone_bf16(model.net)  # inference: bf16 weight storage, after the load
 
     os.makedirs(args.out_folder, exist_ok=True)
     names = sorted(f for f in os.listdir(args.img_folder)

@@ -6,15 +6,24 @@ Usage:
         --tp_mode ring --n_devices 1 --batch_size 2 [--eval_only 1] [--device cuda]
 
 BEDLAM training through ``Trainer.fit`` with Adam, per-epoch checkpoints and
-the epoch-end evaluation over ``--valset`` (``bedlam``, ``ehf``). The flags
-are the JAX CLI's, flag for flag, plus ``--device`` (default ``cuda``).
-``--tp_mode ring`` runs the ViT's standard stream (K5 forward), ``heads``
-the channels-major one (K1, K2); on one device neither shards anything.
+the epoch-end evaluation over ``--valset`` (``bedlam``, ``ehf``, ``3dpw``).
+The flags are the JAX CLI's, flag for flag, plus ``--device`` (default
+``cuda``). ``--tp_mode ring`` runs the ViT's standard stream (K5 forward),
+``heads`` the channels-major one (K1, K2); on one device neither shards
+anything. ``--pretrained`` takes this port's own checkpoint (``ckpt_*.pt``
+with its ``.json`` beside it) or a reference ``multiHMR_*.pt``, converted
+for the config the flags give.
+
+3DPW evaluation reads its assets under ``$SMPLX_DIR`` (default ``models``),
+in the reference's layout (``smplx/smplx2smpl.pkl``, ``smpl/...``) or flat:
+``smplx2smpl.pkl`` (without it the valset is skipped), ``J_regressor_h36m.npy``
+(the MPJPE metrics) and ``smpl/SMPL_{MALE,FEMALE}.pkl`` (else a synthetic
+SMPL, with a warning).
 
 Flags of features not ported yet raise with the ROADMAP item that ports them:
-more than one device, ``--model_parallel`` or ``--fsdp`` (M11), ``--valset
-3dpw`` (M7), ``--visu_to_save`` (``render/``), and ``--pretrained`` of
-anything but this port's own ``.pt`` checkpoint (M5 ``--ckpt``).
+more than one device, ``--model_parallel`` or ``--fsdp`` (M11) and
+``--visu_to_save`` (``render/``). A ``--pretrained`` flax ``.msgpack`` (the
+JAX package's own format) does not load here.
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ def build_argparser():
     p.add_argument(
         "--valset", type=str, nargs="+", default=["ehf"],
         choices=("bedlam", "ehf", "3dpw"),
-        help="val dataset(s) evaluated each epoch (3dpw is not ported yet)",
+        help="val dataset(s) evaluated each epoch",
     )
     p.add_argument(
         "--val_split", type=str, nargs="+", default=None,
@@ -154,7 +163,8 @@ def build_argparser():
     p.add_argument("--nb_max_ckpt", type=int, default=3)
     p.add_argument(
         "--pretrained", type=str, default=None,
-        help="a checkpoint this port wrote (ckpt_*.pt with its .json)",
+        help="initial weights: a checkpoint this port wrote (ckpt_*.pt with its "
+        ".json) or a reference multiHMR_*.pt",
     )
     p.add_argument(
         "--resume", type=int, default=0,
@@ -175,16 +185,18 @@ def _unported(args, n_dev: int) -> str | None:
     if n_dev > 1 or args.model_parallel > 1 or args.fsdp:
         return ("multi-device training (--n_devices > 1, --model_parallel > 1, --fsdp 1) "
                 "is not ported yet: ROADMAP M11")
-    if "3dpw" in args.valset:
-        return "--valset 3dpw is not ported yet (data/threedpw.py, load_smpl_pkl): ROADMAP M7"
     if args.visu_to_save > 0:
         return "--visu_to_save is not ported yet: it needs render/ (ROADMAP M5)"
-    if args.pretrained and not (args.pretrained.endswith(".pt") and os.path.isfile(
-            args.pretrained[:-3] + ".json")):
-        return (f"--pretrained {args.pretrained}: only this port's own checkpoints "
-                "(ckpt_*.pt beside their .json) load; reference .pt and .msgpack files "
-                "wait for ROADMAP M5 --ckpt")
+    if args.pretrained and args.pretrained.endswith(".msgpack"):
+        return (f"--pretrained {args.pretrained}: a flax .msgpack is the JAX package's "
+                "native format and does not load here; give this port's own ckpt_*.pt or "
+                "a reference multiHMR_*.pt")
     return None
+
+
+def _is_port_checkpoint(path: str) -> bool:
+    """This port's own checkpoints have their ``.json`` beside them."""
+    return path.endswith(".pt") and os.path.isfile(path[:-3] + ".json")
 
 
 def _apply_mean_params(net, cfg, smplx_dir: str) -> None:
@@ -211,7 +223,11 @@ def main(argv=None):
     from multihmr_tpu_torch.data.prefetch import bounded_parallel_map
     from multihmr_tpu_torch.factory import build_model, load_body_model, smplx_asset, smplx_dir
     from multihmr_tpu_torch.io.checkpoint import load_checkpoint
-    from multihmr_tpu_torch.train.evaluate import evaluate_dataset, make_smplx_gt_forward
+    from multihmr_tpu_torch.train.evaluate import (
+        evaluate_dataset,
+        make_smpl_gt_forward,
+        make_smplx_gt_forward,
+    )
     from multihmr_tpu_torch.train.memory import device_hbm_limit, resolve_remat_flags
     from multihmr_tpu_torch.train.trainer import Trainer
     from multihmr_tpu_torch.utils.logging import MetricsLogger
@@ -245,16 +261,18 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
     if smplx_asset() is None:
         print("WARNING: SMPL-X assets not found — using the synthetic body model")
-    model = build_model(device=device, seed=0, cfg=cfg, tp_mode=args.tp_mode)
+    reference = args.pretrained and not _is_port_checkpoint(args.pretrained)
+    model = build_model(device=device, seed=0, cfg=cfg, tp_mode=args.tp_mode,
+                        checkpoint=args.pretrained if reference else None)
     bm = model.body_model
     # GT targets run through an 11-beta neutral SMPL-X like the reference
     # (train.py:41-43, 99-110), independent of the model's num_betas.
     gt_bm = load_body_model(device, 11) if cfg.num_betas != 11 else bm
 
-    if args.pretrained:
+    if args.pretrained and not reference:
         state, _ = load_checkpoint(args.pretrained)
         model.net.load_state_dict(state, strict=True)
-    else:
+    elif not args.pretrained:
         _apply_mean_params(model.net, cfg, smplx_dir())
 
     logger = MetricsLogger(args.logdir, args.name)
@@ -280,13 +298,55 @@ def main(argv=None):
     def run_eval(model, epoch):
         all_res = {}
         for vi, vname in enumerate(valsets):
-            gt_fwd = None
+            gt_fwd, eval_kw = None, {}
             if vname == "ehf":
                 from multihmr_tpu_torch.data.ehf import EHF
 
                 split = val_split[vi] or "test"
                 ds = EHF(img_size=cfg.img_size, split=split, n=val_n[vi], subsample=val_sub[vi])
-            else:  # "bedlam": _unported refused 3dpw
+            elif vname == "3dpw":
+                from multihmr_tpu_torch.bodymodel.assets import (
+                    load_j_regressor_h36m,
+                    load_smpl_pkl,
+                    load_smplx2smpl,
+                    synthetic_body_model,
+                )
+                from multihmr_tpu_torch.bodymodel.core import BodyModel
+                from multihmr_tpu_torch.data.threedpw import THREEDPW
+
+                # 3DPW GT is gendered SMPL (6,890 vertices): PVE against
+                # SMPL-X predictions needs the smplx2smpl regressor
+                # (reference train.py:383-384), in the reference layout
+                # (smplx/, smpl/) or flat under $SMPLX_DIR
+                root = smplx_dir()
+                find = lambda *c: next((p for p in c if os.path.isfile(p)), None)  # noqa: E731
+                s2s = find(os.path.join(root, "smplx", "smplx2smpl.pkl"),
+                           os.path.join(root, "smplx2smpl.pkl"))
+                if s2s is None:
+                    print(f"3dpw eval SKIPPED: smplx2smpl.pkl not found under {root} "
+                          "(needed to map SMPL-X predictions onto the SMPL-topology GT, "
+                          "reference train.py:44-45,383-384)")
+                    continue
+                eval_kw = {"smplx2smpl": load_smplx2smpl(s2s)}
+                jr = find(os.path.join(root, "smpl", "J_regressor_h36m.npy"),
+                          os.path.join(root, "J_regressor_h36m.npy"))
+                if jr is not None:  # the MPJPE metrics (reference train.py:397-429)
+                    eval_kw["J_regressor_h36m"] = load_j_regressor_h36m(jr)
+                split = val_split[vi] or "test"
+                ds = THREEDPW(img_size=cfg.img_size, split=split, n=val_n[vi],
+                              subsample=val_sub[vi], smpl_dir=root)
+                layers = {}
+                for g in ("male", "female"):
+                    path = os.path.join(root, "smpl", f"SMPL_{g.upper()}.pkl")
+                    if os.path.isfile(path):
+                        arrays = load_smpl_pkl(path)
+                    else:  # runnable without the licensed pkls
+                        print(f"WARNING: {path} not found — synthetic {g} SMPL for 3dpw GT")
+                        arrays = synthetic_body_model(num_vertices=6890, num_joints=24,
+                                                      num_extra=0, num_lmk=0)
+                    layers[g] = BodyModel.from_arrays(arrays, device)
+                gt_fwd = make_smpl_gt_forward(layers, capacity=cfg.max_people)
+            else:  # "bedlam"
                 from multihmr_tpu_torch.data.bedlam import BEDLAM
 
                 split = val_split[vi] or "validation"
@@ -297,14 +357,15 @@ def main(argv=None):
                 gt_fwd = make_smplx_gt_forward(gt_bm, num_betas=11)
             res = evaluate_dataset(model, ds, det_thresh=args.det_thresh,
                                    nms_kernel_size=args.nms_kernel_size, gt_forward=gt_fwd,
-                                   log_every=args.log_freq)
+                                   log_every=args.log_freq, **eval_kw)
             # reference tag shape: {name}-{split}-{subsample}/{metric}
             # (train.py:477-479); scalars only — 'timings' is a nested dict
             logger.scalars({k: v for k, v in res.items() if isinstance(v, (int, float))},
                            epoch, prefix=f"{vname}-{split}-{val_sub[vi]}/")
             print(f"eval[{vname}-{split}] epoch {epoch}: {res}")
             all_res[vname] = res
-        return all_res if len(valsets) > 1 else all_res[valsets[0]]
+        # .get: a valset can be skipped (3dpw without smplx2smpl)
+        return all_res if len(valsets) > 1 else all_res.get(valsets[0])
 
     if args.eval_only:
         run_eval(model, 0)

@@ -1,8 +1,9 @@
 """Rotation algebra (``multihmr_tpu/ops/rotations.py``).
 
 6D → SO(3) Gram-Schmidt, Rodrigues rotvec → rotmat, and rotmat → rotvec
-through a branch-free Shepperd quaternion. The clamps that keep gradients
-finite at theta → 0 are kept as the JAX package has them.
+through a branch-free Shepperd quaternion, and the scaled Procrustes
+alignment of the PA metrics. The clamps that keep gradients finite at
+theta → 0 are kept as the JAX package has them.
 """
 
 from __future__ import annotations
@@ -97,3 +98,35 @@ def unitquat_to_rotvec(q):
 def rotmat_to_rotvec(R):
     """Rotation matrix → axis-angle."""
     return unitquat_to_rotvec(rotmat_to_unitquat(R))
+
+
+def rigid_points_registration(x, y, compute_scaling: bool = True):
+    """Scaled Procrustes alignment of point sets ``(..., N, 3)`` (Kabsch /
+    Umeyama), ``roma.rigid_points_registration``'s function (reference
+    train.py:391,426): R, s, t minimizing ``|| s * R @ x + t - y ||``.
+    Returns (R ``(..., 3, 3)``, s ``(...)``, t ``(..., 3)``), or (R, t)
+    without scaling.
+
+    ``train/metrics.py::pa_pve`` is the JAX package's float64 numpy copy of
+    the same algorithm, and stays so: it is a copied module, and runs once
+    per matched person on the host."""
+    mu_x = x.mean(dim=-2, keepdim=True)
+    mu_y = y.mean(dim=-2, keepdim=True)
+    xc, yc = x - mu_x, y - mu_y
+    cov = torch.einsum("...ni,...nj->...ij", yc, xc)
+    U, S, Vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(U @ Vt)
+    # Umeyama's d = ±1 only: det >= 0 counts as +1, so a degenerate
+    # (coplanar) covariance still gives a proper rotation and keeps S[2]
+    d = torch.where(det < 0, -1.0, 1.0).to(x.dtype)
+    D = torch.eye(3, dtype=x.dtype, device=x.device).expand(cov.shape).clone()
+    D[..., 2, 2] = d
+    R = U @ D @ Vt
+    t_rot = lambda m: torch.einsum("...ij,...j->...i", R, m)  # noqa: E731
+    if compute_scaling:
+        var_x = torch.sum(xc * xc, dim=(-1, -2))
+        ones = torch.ones_like(d)
+        s = torch.sum(S * torch.stack([ones, ones, d], -1), -1) / torch.clamp(var_x, min=1e-24)
+        t = mu_y[..., 0, :] - s[..., None] * t_rot(mu_x[..., 0, :])
+        return R, s, t
+    return R, mu_y[..., 0, :] - t_rot(mu_x[..., 0, :])

@@ -2,13 +2,18 @@
 reference train.py:336-482.
 
 Per image: forward the model, greedily match predicted people to GT in 2D,
-accumulate PVE and PA-PVE, plus precision/recall/F1 from the matching. The
-metric math is the JAX package's numpy, copied into ``train/metrics.py``.
+accumulate PVE and PA-PVE (and MPJPE / PA-MPJPE through the H36M regressor
+for 3DPW), plus precision/recall/F1 from the matching. The metric math is
+the JAX package's numpy, copied into ``train/metrics.py``.
 
-Not here yet: the 3DPW branch (``make_smpl_gt_forward``, the
-``smplx2smpl`` and ``J_regressor_h36m`` arguments and the MPJPE metrics,
-waiting for ``data/threedpw.py`` and ``load_smpl_pkl``) and the eval
-triptychs (``visu_to_save``, waiting for ``render/``).
+Two differences from the JAX package, both chosen: a ``J_regressor_h36m``
+that cannot take the predictions' vertex count (SMPL-X predictions without
+``smplx2smpl``) raises a ``ValueError`` before the first image, where the
+JAX package fails inside an einsum at the first match; and the matcher sees
+the predictions' joints truncated to the GT's joint count, as in the JAX
+package and the reference, so on 3DPW SMPL-X joints 22-23 (jaw, left eye)
+stand against SMPL's hands. The eval triptychs (``visu_to_save``) wait for
+``render/``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from multihmr_tpu_torch.bodymodel.constants import H36M_TO_J14
 from multihmr_tpu_torch.bodymodel.core import BodyModel, lbs_forward
 from multihmr_tpu_torch.ops.camera import perspective_projection
 from multihmr_tpu_torch.ops.rotations import rotvec_to_rotmat
@@ -31,30 +37,71 @@ from multihmr_tpu_torch.train.metrics import (
 )
 
 
+@torch.no_grad()
+def _posed(bm: BodyModel, pose, shape, transl, K):
+    """Numpy (v3d, j3d, j2d) of persons' axis-angle ``pose [P, J, 3]``,
+    ``shape`` and ``transl`` through ``lbs_forward`` on the body model's
+    device, projected by ``K [3, 3]``."""
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(bm.v_template.device)  # noqa: E731
+    out = lbs_forward(bm, rotvec_to_rotmat(as_t(pose)), as_t(shape))
+    v3d = out["vertices"] + as_t(transl)[:, None]
+    j3d = out["joints"] + as_t(transl)[:, None]
+    j2d = perspective_projection(j3d, as_t(K)[None])
+    return v3d.cpu().numpy(), j3d.cpu().numpy(), j2d.cpu().numpy()
+
+
 def make_smplx_gt_forward(body_model: BodyModel, num_betas: int = 11):
     """GT forward for datasets that store SMPL-X parameters (BEDLAM):
     ``annot['humans']`` entries with ``smplx_*`` keys → numpy
     ``{v3d [P, V, 3], j3d [P, J, 3], j2d [P, J, 2]}``, through the same
     ``lbs_forward`` as training, on the body model's device. Eager torch
     needs none of the JAX version's fixed-capacity padding."""
-    device = body_model.v_template.device
 
-    @torch.no_grad()
     def gt_forward(annot):
         humans = annot["humans"]
         pose = np.stack([
             np.concatenate([h["smplx_root_pose"], h["smplx_body_pose"], h["smplx_jaw_pose"],
                             h["smplx_leye_pose"], h["smplx_reye_pose"],
                             h["smplx_left_hand_pose"], h["smplx_right_hand_pose"]], 0)
-            for h in humans]).astype(np.float32)
-        shape = np.stack([h["smplx_shape"][:num_betas] for h in humans]).astype(np.float32)
-        transl = np.stack([h["smplx_transl"] for h in humans]).astype(np.float32)
-        as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-        out = lbs_forward(body_model, rotvec_to_rotmat(as_t(pose)), as_t(shape))
-        v3d = out["vertices"] + as_t(transl)[:, None]
-        j3d = out["joints"] + as_t(transl)[:, None]
-        j2d = perspective_projection(j3d, as_t(np.asarray(annot["K"], np.float32))[None])
-        return {"v3d": v3d.cpu().numpy(), "j3d": j3d.cpu().numpy(), "j2d": j2d.cpu().numpy()}
+            for h in humans])
+        shape = np.stack([h["smplx_shape"][:num_betas] for h in humans])
+        transl = np.stack([h["smplx_transl"] for h in humans])
+        v3d, j3d, j2d = _posed(body_model, pose, shape, transl, annot["K"])
+        return {"v3d": v3d, "j3d": j3d, "j2d": j2d}
+
+    return gt_forward
+
+
+def make_smpl_gt_forward(body_models: Dict[str, BodyModel], capacity: int = 16):
+    """GT forward for datasets that store gendered SMPL parameters (3DPW):
+    ``annot['humans']`` entries with ``smpl_*`` keys and ``smpl_gender`` →
+    numpy ``{v3d [P, 6890, 3], j3d [P, J, 3], j2d [P, J, 2]}``. Persons are
+    grouped by gender, run through that gender's body model in chunks of at
+    most ``capacity``, and scattered back to their order (reference
+    train.py:58-96, 351-357).
+
+    The GT vertices are SMPL topology: comparing them with SMPL-X
+    predictions needs the ``smplx2smpl`` regressor (reference
+    train.py:383-384)."""
+
+    def gt_forward(annot):
+        humans = annot["humans"]
+        outs = [None] * len(humans)
+        for g, bm in body_models.items():
+            idxs = [i for i, h in enumerate(humans) if h["smpl_gender"] == g]
+            if not idxs:
+                continue
+            pose = np.stack([np.concatenate([humans[i]["smpl_root_pose"],
+                                             humans[i]["smpl_body_pose"]], 0) for i in idxs])
+            shape = np.stack([humans[i]["smpl_shape"] for i in idxs])
+            transl = np.stack([humans[i]["smpl_transl"] for i in idxs])
+            for s in range(0, len(idxs), capacity):
+                chunk = slice(s, s + capacity)
+                v3d, j3d, j2d = _posed(bm, pose[chunk], shape[chunk], transl[chunk], annot["K"])
+                for k, i in enumerate(idxs[chunk]):
+                    outs[i] = (v3d[k], j3d[k], j2d[k])
+        v3d, j3d, j2d = (np.stack(parts) for parts in zip(*outs))
+        return {"v3d": v3d, "j3d": j3d, "j2d": j2d}
 
     return gt_forward
 
@@ -70,6 +117,8 @@ def evaluate_dataset(
     dataset,
     det_thresh: float = 0.3,
     nms_kernel_size: int = 3,
+    smplx2smpl: Optional[np.ndarray] = None,  # [6890, 10475] for 3DPW
+    J_regressor_h36m: Optional[np.ndarray] = None,  # [17, 6890]
     gt_forward: Optional[Callable] = None,
     max_images: Optional[int] = None,
     log_every: int = 50,
@@ -83,7 +132,9 @@ def evaluate_dataset(
     supplies GT meshes for datasets that store parameters rather than
     vertices; EHF-style datasets with ``smplx_vertices`` are handled
     natively (GT joints regressed with the model's J_regressor, reference
-    train.py:72-74).
+    train.py:72-74). ``smplx2smpl`` maps the predicted vertices to the GT's
+    SMPL topology (3DPW); ``J_regressor_h36m`` adds ``mpjpe`` and
+    ``pa_mpjpe`` over the 14 H36M joints.
 
     With a ``gt_forward`` (per-image host work to hide) the loop enqueues
     image *i+1*'s forward on the card before image *i*'s result is read
@@ -93,7 +144,13 @@ def evaluate_dataset(
     / readback / gt / match_metrics / visu (always 0 here) sum to about the
     wall."""
     device = next(model.net.parameters()).device
-    meters = {k: AverageMeter(k) for k in ["pve", "pa_pve"]}
+    n_pred_verts = model.body_model.num_vertices if smplx2smpl is None else smplx2smpl.shape[0]
+    if J_regressor_h36m is not None and J_regressor_h36m.shape[1] != n_pred_verts:
+        raise ValueError(
+            f"J_regressor_h36m {tuple(J_regressor_h36m.shape)} needs predictions on its "
+            f"{J_regressor_h36m.shape[1]}-vertex topology; they have {n_pred_verts} vertices "
+            "(pass smplx2smpl to map SMPL-X predictions to SMPL)")
+    meters = {k: AverageMeter(k) for k in ["pve", "pa_pve", "mpjpe", "pa_mpjpe"]}
     count = miss = fp = 0
     timings = {k: 0.0 for k in (
         "load", "dispatch", "wait", "readback", "gt", "match_metrics", "visu")}
@@ -156,12 +213,25 @@ def evaluate_dataset(
         for pi, gi in best:
             p_pel = np.asarray(persons[pi]["transl_pelvis"]).reshape(1, 1, 3)
             g_pel = gt["j3d"][gi][:1][None]
-            # center at the pelvis before the metrics (reference
-            # train.py:373-385)
+            # center at the pelvis before the regressors (reference
+            # train.py:373-385): regressing the O(0.3 m) centred mesh keeps
+            # the fp32 digits that O(camera-distance) coordinates would lose
             pv = np.asarray(persons[pi]["v3d"])[None] - p_pel
             gv = gt["v3d"][gi][None] - g_pel
+            if smplx2smpl is not None:  # 3DPW: SMPL-X vertices → SMPL topology
+                pv = np.einsum("sv,bvc->bsc", smplx2smpl, pv)
             meters["pve"].update(float(pve_fn(pv, gv, 0.0, 0.0)[0]))
             meters["pa_pve"].update(float(pa_pve(pv, gv)[0]))
+            if J_regressor_h36m is not None:
+                # centre at H36M joint 0 (the pelvis) before the J14 subset,
+                # whose first entry is not the pelvis (reference
+                # train.py:406-415)
+                pj = np.einsum("js,bsc->bjc", J_regressor_h36m, pv)
+                gj = np.einsum("js,bsc->bjc", J_regressor_h36m, gv)
+                pj = (pj - pj[:, :1])[:, H36M_TO_J14]
+                gj = (gj - gj[:, :1])[:, H36M_TO_J14]
+                meters["mpjpe"].update(float(1000 * np.linalg.norm(pj - gj, axis=-1).mean()))
+                meters["pa_mpjpe"].update(float(pa_pve(pj, gj)[0]))
         timings["match_metrics"] += time.perf_counter() - t3
         if log_every and (i + 1) % log_every == 0:
             log_fn(f"[{i+1}/{n}] pve={meters['pve'].avg:.1f} "
@@ -183,7 +253,7 @@ def evaluate_dataset(
     wall = time.perf_counter() - t_start
 
     precision, recall, f1 = compute_prf1(count, miss, fp)
-    return {
+    results = {
         "pve": meters["pve"].avg,
         "pa_pve": meters["pa_pve"].avg,
         "precision": precision,
@@ -193,3 +263,7 @@ def evaluate_dataset(
         "timings": {**{k: round(v, 4) for k, v in timings.items()},
                     "wall": round(wall, 4)},
     }
+    if J_regressor_h36m is not None:
+        results["mpjpe"] = meters["mpjpe"].avg
+        results["pa_mpjpe"] = meters["pa_mpjpe"].avg
+    return results

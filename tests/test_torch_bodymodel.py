@@ -59,6 +59,8 @@ def test_mean_params_and_constants_equal(tmp_path):
                 np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     assert tconst.get_smplx_joint_names() == jconst.get_smplx_joint_names()
     assert tconst.extra_joint_vertex_ids("smplx") == jconst.extra_joint_vertex_ids("smplx")
+    assert tconst.extra_joint_vertex_ids("smpl") == jconst.extra_joint_vertex_ids("smpl")
+    assert (tconst.H36M_TO_J17, tconst.H36M_TO_J14) == (jconst.H36M_TO_J17, jconst.H36M_TO_J14)
 
 
 def test_load_smplx_npz_equal(tmp_path):

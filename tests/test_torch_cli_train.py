@@ -2,8 +2,10 @@
 end on the CPU, on the synthetic BEDLAM and EHF trees of
 tests/test_cli_train.py: one epoch of BEDLAM training on each ViT stream
 with the epoch-end BEDLAM + EHF evaluation, ``--eval_only 1 --amp 0``,
-``--resume`` and ``--pretrained``, and the flags of features not ported yet,
-which must raise."""
+``--resume`` and ``--pretrained`` (this port's checkpoints here; reference
+``multiHMR_*.pt`` files in tests/test_torch_checkpoint.py, whose faults must
+raise the JAX package's errors), and the flags of features not ported yet,
+which must raise. ``--valset 3dpw`` is in tests/test_torch_threedpw.py."""
 
 import json
 import os
@@ -82,11 +84,8 @@ def test_train_cli_resume_and_pretrained(trees, capsys):
     (["--n_devices", "2"], "M11"),
     (["--model_parallel", "2"], "M11"),
     (["--fsdp", "1"], "M11"),
-    (["--valset", "3dpw"], "M7"),
-    (["--valset", "ehf", "3dpw"], "M7"),
     (["--visu_to_save", "1"], "render/"),
-    (["--pretrained", "multiHMR_896_L.pt"], "M5 --ckpt"),
-    (["--pretrained", "ckpt.msgpack"], "M5 --ckpt"),
+    (["--pretrained", "ckpt.msgpack"], "the JAX package's native format"),
 ])
 def test_unported_flags_raise(trees, flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -94,11 +93,42 @@ def test_unported_flags_raise(trees, flags, match):
 
 
 def test_unported_flags_raise_before_any_work(trees):
-    # a reference-style .pt with no .json beside it is not this port's checkpoint
-    torch.save({"model_state_dict": {}}, "ref.pt")
-    with pytest.raises(NotImplementedError, match="only this port's own checkpoints"):
-        main(TINY + ["--pretrained", "ref.pt", "--eval_only", "1"])
+    # a flax .msgpack is refused before the model is built or a log is opened
+    with open("ckpt.msgpack", "wb") as f:
+        f.write(b"\x80")
+    with pytest.raises(NotImplementedError, match="does not load here"):
+        main(TINY + ["--pretrained", "ckpt.msgpack", "--eval_only", "1"])
     assert not os.path.exists("logs")
+
+
+def _reference_file(path, fault):
+    """A reference-layout checkpoint for TINY's configuration, with a fault."""
+    from multihmr_tpu_torch.config import ModelConfig
+    from multihmr_tpu_torch.io.checkpoint import expected_reference_shapes
+
+    cfg = ModelConfig(backbone="dinov2_vits14", img_size=56, xat_depth=1, max_people=4)
+    sd = {k: torch.zeros([s or 5 for s in shape])
+          for k, shape in expected_reference_shapes(cfg).items()}
+    if fault == "missing":
+        del sd["x_attention_head.deccam.bias"]
+    elif fault == "bad_shape":
+        sd["backbone.encoder.patch_embed.proj.weight"] = torch.zeros(384, 14, 14, 3)
+    torch.save({"model_state_dict": sd}, path)
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("missing", KeyError, "missing 1 expected keys"),
+    ("bad_shape", ValueError, "shapes the converter's transposes/reshapes cannot accept"),
+    ("absent", FileNotFoundError, "multiHMR_896_L.pt"),
+])
+def test_reference_pretrained_faults_raise(trees, fault, error, match):
+    """A reference ``--pretrained`` (no .json beside it) goes through the
+    converter, whose faults raise as the JAX package's do, before any eval."""
+    if fault != "absent":
+        _reference_file("multiHMR_896_L.pt", fault)
+    with pytest.raises(error, match=match):
+        main(TINY + ["--pretrained", "multiHMR_896_L.pt", "--eval_only", "1"])
+    assert not os.path.exists(os.path.join("logs", "run"))
 
 
 def test_mean_params_applied_when_present(tmp_path):

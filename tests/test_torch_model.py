@@ -145,8 +145,11 @@ def test_demo_main_writes_persons(tmp_path, monkeypatch):
     assert len(rec["persons"][0]["j3d"]) == 127 and "v3d" not in rec["persons"][0]
     meshes = np.load(out / "im0.png_multiHMR_672_S.npy")
     assert meshes.shape == (3, 64, 3) and np.isfinite(meshes).all()
-    with pytest.raises(SystemExit):
-        demo.main(["--img_folder", str(src), "--ckpt", "x.pt", "--device", "cpu"])
+    # --ckpt loads a reference checkpoint (tests/test_torch_checkpoint.py);
+    # one that is not there raises before any image is read
+    with pytest.raises(FileNotFoundError):
+        demo.main(["--img_folder", str(src), "--ckpt", str(tmp_path / "x.pt"),
+                   "--device", "cpu", "--model_name", "multiHMR_672_S"])
 
 
 # an import statement of jax, flax or the JAX package, at any indentation
