@@ -98,6 +98,20 @@ Phases, one line each:
      metrics within 1e-3 relative); then two 896_L training steps from the
      same file (finite losses, 24 K3 per step) with the epoch-end 3DPW
      evaluation of one frame.
+ 17. the Anny family (``multiHMR_672_L_anny``: ViT-L at 672 px, 8 x 512
+     decoder, 163 bones) on the synthetic Anny asset at 10,475 vertices,
+     read through ``$ANNY_NPZ``: (a) fp32 with the ViT cut to 4 blocks
+     (LayerScale 0.5), card against CPU on both streams (detections equal,
+     every output within phase 5's 1e-3, 4 K1 + 8 K2 or 4 K5 launches);
+     (b) a seeded reference-layout ``multiHMR_672_L_anny.pt`` at full width
+     (its size, load and convert seconds) through ``cli/demo.py --ckpt`` on
+     three images per stream (24 K1 + 48 K2 and no K5 per image on heads,
+     24 K5 and no K1/K2 on ring; finite meshes; persons sorted near to far;
+     the demo's p50 ms per image); (c) the file's weights in bf16, ring
+     against heads and each against an fp32 control (patch tokens, phase
+     13's limits); (d) per stream the forward's wall, device busy ms and
+     the body model's share of the wall, the launches of one 163-bone FK
+     and the time of the product with the zero pose correctives.
 
 Then a JSON line of the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
@@ -1567,6 +1581,376 @@ def run_3dpw_cli(build_model, cuda_lib, attention, norm, card, ckpts):
         raise AssertionError("3DPW CLI check failed")
 
 
+# ---- phase 17: the Anny family ----
+
+ANNY = "multiHMR_672_L_anny"
+ANNY_VERTICES = 10475  # a synthetic mesh of a real body model's size (SMPL-X's)
+ANNY_OUT = ("scores", "K_regressed", "fov_regressed", "loc", "dist", "shape", "rotmat",
+            "rotvec", "transl", "v3d", "j3d", "j2d", "blendshape_coeffs")
+# forward launches (K1, K2, K5) per image of the Anny ViT-L per stream, at
+# its 24 blocks and at the 4 that the card-vs-CPU check keeps
+ANNY_LAUNCHES = {"heads": (24, 48, 0), "ring": (0, 0, 24)}
+ANNY_LAUNCHES_4 = {"heads": (4, 8, 0), "ring": (0, 0, 4)}
+
+
+def anny_reference_shapes(cfg) -> dict:
+    """The torch-side shape of every key of a reference ``multiHMR_*_anny.pt``
+    (``expected_reference_keys_anny``), with a 37 x 37 DINOv2 pos-embed grid:
+    this script's copy of tests/test_anny_checkpoint.py's
+    ``make_anny_state_dict`` layout."""
+    D, X, J = cfg.vit.embed_dim, cfg.xat_dim, cfg.n_joints
+    H = int(D * cfg.vit.mlp_ratio)
+    inner = cfg.xat_heads * cfg.xat_dim_head
+    bb = "encoder.backbone."
+    shapes = {bb + "patch_embed.proj.weight": (D, 3, 14, 14), bb + "patch_embed.proj.bias": (D,),
+              bb + "cls_token": (1, 1, D), bb + "pos_embed": (1, 1 + 37 * 37, D),
+              bb + "norm.weight": (D,), bb + "norm.bias": (D,)}
+    for i in range(cfg.vit.depth):
+        b = f"{bb}blocks.{i}."
+        shapes.update({b + "norm1.weight": (D,), b + "norm1.bias": (D,),
+                       b + "attn.qkv.weight": (3 * D, D), b + "attn.qkv.bias": (3 * D,),
+                       b + "attn.proj.weight": (D, D), b + "attn.proj.bias": (D,),
+                       b + "ls1.gamma": (D,), b + "ls2.gamma": (D,),
+                       b + "norm2.weight": (D,), b + "norm2.bias": (D,),
+                       b + "mlp.fc1.weight": (H, D), b + "mlp.fc1.bias": (H,),
+                       b + "mlp.fc2.weight": (D, H), b + "mlp.fc2.bias": (D,)})
+    for mlp, fan_in, hidden, od in [
+        ("encoder.mlp_det", D, D, 1), ("encoder.mlp_fov_unique", D, D, 1),
+        ("mlp_offset", X, X, 2), ("mlp_shape", X, X, cfg.num_betas), ("mlp_dist", X, X, 1),
+        ("mlp_pose", X + J * 6, X, J * 6),
+    ]:
+        shapes.update({f"{mlp}.0.weight": (hidden, fan_in), f"{mlp}.0.bias": (hidden,),
+                       f"{mlp}.2.weight": (od, hidden), f"{mlp}.2.bias": (od,)})
+    shapes.update({"dec_to_token.weight": (X, D), "dec_to_token.bias": (X,),
+                   "dec_pos_emb": (cfg.grid_size ** 2, X), "init_body_pose": (1, J * 6)})
+    for i in range(cfg.xat_depth):
+        layer = f"decoder.transformer.layers.{i}."
+        for j in (0, 1, 2):
+            shapes.update({layer + f"{j}.norm.weight": (X,), layer + f"{j}.norm.bias": (X,)})
+        shapes.update({
+            layer + "0.fn.to_qkv.weight": (3 * inner, X),
+            layer + "0.fn.to_out.0.weight": (X, inner), layer + "0.fn.to_out.0.bias": (X,),
+            layer + "1.fn.to_kv.weight": (2 * inner, X), layer + "1.fn.to_q.weight": (inner, X),
+            layer + "1.fn.to_out.0.weight": (X, inner), layer + "1.fn.to_out.0.bias": (X,),
+            layer + "2.fn.net.0.weight": (cfg.xat_mlp_dim, X),
+            layer + "2.fn.net.0.bias": (cfg.xat_mlp_dim,),
+            layer + "2.fn.net.3.weight": (X, cfg.xat_mlp_dim), layer + "2.fn.net.3.bias": (X,)})
+    return shapes
+
+
+def anny_reference_state_dict(cfg, seed=0):
+    """A seeded state dict in the reference Anny layout: unit normals scaled
+    by fan_in^-0.5, LayerNorms at 1 and 0, LayerScale LAYERSCALE, the 2D
+    sincos decoder embedding, and a random ``init_body_pose``; the detection
+    head's output bias at 0 (so that persons are detected) and the distance
+    head's at log(focal / 4 m) for the demo's FOV-60 focal, its weight scaled
+    by 0.3 (persons a few metres away, at several depths); plus a
+    ``body_model.*`` buffer and ``useful_rotmat``, which the converter skips."""
+    from multihmr_tpu_torch.io.checkpoint import expected_reference_keys_anny
+    from multihmr_tpu_torch.ops.camera import get_focal_length_from_fov
+    from multihmr_tpu_torch.ops.posenc import get_2d_sincos_pos_embed
+
+    shapes = anny_reference_shapes(cfg)
+    if set(shapes) != expected_reference_keys_anny(cfg):
+        raise AssertionError("the Anny reference layout differs from expected_reference_keys_anny")
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, shape in sorted(shapes.items()):
+        if ".norm" in k or "norm1" in k or "norm2" in k:
+            t = torch.ones(shape) if k.endswith("weight") else torch.zeros(shape)
+        elif k.endswith("gamma"):
+            t = torch.full(shape, LAYERSCALE)
+        elif k == "dec_pos_emb":
+            t = torch.from_numpy(get_2d_sincos_pos_embed(cfg.xat_dim, cfg.grid_size)).float()
+        else:
+            t = torch.randn(shape, generator=g)
+            if k.endswith("weight") and len(shape) >= 2:
+                t /= float(np.prod(shape[1:])) ** 0.5
+        sd[k] = t
+    sd["encoder.mlp_det.2.bias"].zero_()
+    sd["mlp_dist.2.weight"] *= 0.3
+    sd["mlp_dist.2.bias"].fill_(float(np.log(get_focal_length_from_fov(60, cfg.img_size) / 4.0)))
+    sd["body_model.template"] = torch.zeros(3)
+    sd["useful_rotmat"] = torch.ones(1, cfg.n_joints)
+    return sd
+
+
+def anny_cfg_4(anny_config):
+    """The Anny configuration in fp32 with the ViT cut to 4 of its 24 blocks,
+    LayerScale LAYERSCALE."""
+    cfg = anny_config(ANNY)
+    return dataclasses.replace(cfg, compute_dtype="float32", vit_override=dataclasses.replace(
+        cfg.vit, depth=4, layerscale_init=LAYERSCALE))
+
+
+def check_anny_e2e(build_model, anny_config, demo, cuda_lib, attention, norm,
+                   devices=("cpu", "cuda")):
+    """(a) multiHMR_672_L_anny in fp32, 4 ViT blocks, seeded weights: the
+    card against the CPU on both streams, with the demo's K."""
+    cfg = anny_cfg_4(anny_config)
+    img = synthetic_image(7, 480, 640)
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    ok = True
+    for tp_mode in ("heads", "ring"):
+        outs = {}
+        for dev in devices:
+            model = build_model(ANNY, device=dev, seed=0, cfg=cfg, tp_mode=tp_mode)
+            cuda_lib.reset_launches()  # this path's run starts here
+            t0 = time.perf_counter()
+            outs[dev] = demo.predict(model, img)
+            torch.cuda.synchronize()
+            counts = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+            log(17, f"672_L_anny fp32 forward ({tp_mode}, 4 blocks) on {dev}: "
+                    f"{time.perf_counter() - t0:.2f} s")
+        a, b = (outs[d] for d in devices)
+        same_det = all(torch.equal(getattr(a["det"], f), getattr(b["det"], f).cpu())
+                       for f in ("rows", "cols", "valid"))
+        errs = {k: rel_err(a[k], b[k]) for k in ANNY_OUT}
+        n = int(b["det"].valid.sum())
+        ok_s = (same_det and n > 0 and max(errs.values()) <= E2E_TOL
+                and counts == ANNY_LAUNCHES_4[tp_mode])
+        log(17, f"672_L_anny fp32 ({tp_mode}) card vs CPU: detections "
+                f"{'equal' if same_det else 'DIFFER'} ({n} persons), rel errs "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tol {E2E_TOL:g}); card launches K1/K2/K5 {counts} {'ok' if ok_s else 'FAIL'}")
+        ok = ok and ok_s
+    if not ok:
+        raise AssertionError("672_L_anny on the card disagrees with the CPU")
+
+
+def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
+    """(b) ``cli/demo.py --model_name multiHMR_672_L_anny --ckpt <path>`` on
+    three images per stream (ring: the factory's ``build_model`` with
+    ``tp_mode="ring"``): per image launches, finite meshes, persons sorted
+    near to far. Returns the demo's p50 ms per image per stream."""
+    import contextlib
+    import functools
+    import io
+
+    from PIL import Image
+
+    img_dir = os.path.join(tmp, "anny_in")
+    os.makedirs(img_dir)
+    for i, (h, w) in enumerate([(480, 640), (800, 450), (672, 672)]):
+        Image.fromarray(synthetic_image(10 + i, h, w)).save(os.path.join(img_dir, f"im{i}.png"))
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    slots = factory.anny_config(ANNY).max_people
+    build, run_image = factory.build_model, demo.run_image
+    p50, ok = {}, True
+    for tp_mode in ("heads", "ring"):
+        per_image = []
+
+        def counted(model, *args, **kwargs):
+            before = dict(cuda_lib.LAUNCHES)
+            out, persons = run_image(model, *args, **kwargs)
+            depths = [float(p["transl"][2]) for p in persons]
+            per_image.append((tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names),
+                              bool(torch.isfinite(out["v3d"]).all()), tuple(out["v3d"].shape),
+                              len(persons), depths == sorted(depths)))
+            return out, persons
+
+        buf = io.StringIO()
+        demo.run_image = counted
+        factory.build_model = functools.partial(build, tp_mode=tp_mode)
+        cuda_lib.reset_launches()  # the demo's run starts here
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                demo.main(["--img_folder", img_dir, "--out_folder",
+                           os.path.join(tmp, f"anny_out_{tp_mode}"), "--model_name", ANNY,
+                           "--ckpt", path, "--save_mesh", "1"])
+        finally:
+            demo.run_image, factory.build_model = run_image, build
+        secs = time.perf_counter() - t0
+        whole = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(17, "  " + line)
+        p50[tp_mode] = json.loads(lines[-1])["p50_image_ms"]
+        ok_t = (len(per_image) == 3 and not any("WARNING" in ln for ln in lines)
+                and all(c == ANNY_LAUNCHES[tp_mode] and fin
+                        and shp == (1, slots, ANNY_VERTICES, 3) and n > 0 and srt
+                        for c, fin, shp, n, srt in per_image))
+        log(17, f"672_L_anny bf16 demo --ckpt ({tp_mode}), {secs:.1f} s with the load: per image "
+                f"(K1/K2/K5 launches, finite, v3d shape, persons, sorted near to far) "
+                f"{per_image}; whole run K1/K2/K5 {whole}; p50 {p50[tp_mode]:.1f} ms per "
+                f"image [{card}] {'ok' if ok_t else 'FAIL'}")
+        ok = ok and ok_t
+    if not ok:
+        raise AssertionError("672_L_anny demo check failed")
+    return p50
+
+
+def check_anny_streams(build_model, cast_backbone_bf16, cfg, ckpt, x):
+    """(c) the file's weights in bf16: final-norm patch tokens of ring
+    against heads and each against the fp32 heads stream. Returns the two
+    bf16 models."""
+    control = build_model(ANNY, device="cuda", cfg=dataclasses.replace(
+        cfg, compute_dtype="float32"), tp_mode="heads", checkpoint=ckpt)
+    with torch.inference_mode():
+        tok = {"fp32": control.net.encoder.backbone(x)["patch_tokens"].float()}
+    del control
+    models = {}
+    for tp_mode in ("heads", "ring"):
+        models[tp_mode] = build_model(ANNY, device="cuda", cfg=cfg, tp_mode=tp_mode,
+                                      checkpoint=ckpt)
+        cast_backbone_bf16(models[tp_mode].net)
+        with torch.inference_mode():
+            tok[tp_mode] = models[tp_mode].net.encoder.backbone(x)["patch_tokens"].float()
+    rel = lambda a, b: ((tok[a] - tok[b]).norm() / tok[b].norm()).item()  # noqa: E731
+    errs = {"ring vs heads": rel("ring", "heads"), "ring vs fp32": rel("ring", "fp32"),
+            "heads vs fp32": rel("heads", "fp32")}
+    ok = (max(errs.values()) <= STREAM_TOL
+          and errs["ring vs fp32"] <= STREAM_RATIO * errs["heads vs fp32"])
+    log(17, f"672_L_anny bf16 patch tokens (the file's weights, LayerScale {LAYERSCALE:g}), "
+            "rel L2 err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tol {STREAM_TOL:g}, and ring vs fp32 <= {STREAM_RATIO:g} x heads vs fp32) "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("672_L_anny ring and heads streams disagree")
+    return models
+
+
+def wall_ms(fn, reps=10, warmup=2):
+    """Median host milliseconds of ``fn()`` ending in a device synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def time_anny(models, demo, x, K, card):
+    """(d) per stream: the forward's wall and device busy time (profiler),
+    the body model's share of the wall, and the demo's per-image body in
+    parts; the launches of one 163-bone FK
+    (``bodymodel/core.py::_forward_kinematics``) at the forward's B*K slots;
+    the dense product with the zero pose correctives."""
+    import io
+
+    from multihmr_tpu_torch.bodymodel import core
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+    from multihmr_tpu_torch.tools.train_smoke import busy_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    figures = {}
+    with torch.inference_mode():
+        for tp_mode, model in models.items():
+            fwd = wall_ms(lambda: model.forward(x, K))
+            out = model.net(x, K)
+            net = wall_ms(lambda: model.net(x, K))
+            body = wall_ms(lambda: model.apply_body_model(out))
+            n = 3
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(n):
+                    model.forward(x, K)
+                torch.cuda.synchronize()
+            busy = busy_us(prof.events()) / 1e3 / n
+            figures[tp_mode] = (fwd, busy, body)
+            img = synthetic_image(0, 480, 640)
+            pre = wall_ms(lambda: preprocess_array(img, model.cfg.img_size))
+            pred = wall_ms(lambda: demo.predict(model, img))
+            res = demo.predict(model, img)
+            ext = wall_ms(lambda: model.extract_persons(res))
+            persons = model.extract_persons(res)[0]
+            enc = wall_ms(lambda: json.dumps({"persons": demo.persons_to_json(persons)}))
+            npy = wall_ms(lambda: np.save(io.BytesIO(), np.stack([p["v3d"] for p in persons])))
+            log(17, f"672_L_anny demo per-image body ({tp_mode}), 640x480, {len(persons)} "
+                    f"persons: preprocess {pre:.2f} ms, predict (preprocess + forward) "
+                    f"{pred:.2f} ms, extract_persons {ext:.2f} ms, persons to JSON "
+                    f"{enc:.2f} ms, meshes to .npy (in memory) {npy:.2f} ms [{card}]")
+            log(17, f"672_L_anny bf16 forward ({tp_mode}), batch 1: wall {fwd:.2f} ms "
+                    f"(median of 10), device busy {busy:.2f} ms per forward (profiler, 3 "
+                    f"forwards), net alone {net:.2f} ms, body model (apply_body_model: "
+                    f"phenotypes, LBS, FK, projection) {body:.2f} ms = {100 * body / fwd:.1f} % "
+                    f"of the forward's wall [{card}]")
+        bm = models["heads"].body_model
+        B = out["rotmat"].shape[0] * out["rotmat"].shape[1]
+        rot = out["rotmat"].reshape(B, -1, 3, 3)
+        joints = torch.randn((B, rot.shape[1], 3), device=x.device)
+        core._forward_kinematics(rot, joints, bm.base.parents)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            core._forward_kinematics(rot, joints, bm.base.parents)
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        fk = wall_ms(lambda: core._forward_kinematics(rot, joints, bm.base.parents))
+        posedirs = bm.base.posedirs
+        pose_feature = torch.randn((B, posedirs.shape[0]), device=x.device)
+        mm = cuda_ms(lambda: pose_feature @ posedirs, iters=20)
+        mm_bound = bound_ms(2 * B * posedirs.numel(), 4 * (posedirs.numel() + pose_feature.numel()
+                                                           + B * posedirs.shape[1]))
+        log(17, f"163-bone FK (_forward_kinematics) at {B} slots: {launches} device launches "
+                f"per call, wall {fk:.2f} ms; zero pose correctives [{posedirs.shape[0]}, "
+                f"{posedirs.shape[1]}] fp32 ({posedirs.numel() * 4 / 1e6:.1f} MB) x [{B}, "
+                f"{posedirs.shape[0]}]: {mm:.4f} ms per product, bound {mm_bound[0]:.4f} ms "
+                f"({mm_bound[1]}) [{card}]")
+    figures["fk"] = (launches, fk, mm)
+    return figures
+
+
+def run_anny(build_model, demo, cast_backbone_bf16, cuda_lib, attention, norm, card, tmp):
+    """Phase 17: the Anny family with the synthetic asset at ANNY_VERTICES
+    vertices, read through $ANNY_NPZ as a converted one would be."""
+    import argparse
+
+    from multihmr_tpu_torch import factory
+    from multihmr_tpu_torch.bodymodel.anny import AnnyModel, save_anny_npz, synthetic_anny_model
+    from multihmr_tpu_torch.io.checkpoint import convert_reference_checkpoint_anny
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+
+    npz = os.path.join(tmp, "anny.npz")
+    save_anny_npz(npz, AnnyModel.from_arrays(synthetic_anny_model(num_vertices=ANNY_VERTICES),
+                                             "cpu"))
+    env = os.environ.get("ANNY_NPZ")
+    os.environ["ANNY_NPZ"] = npz
+    try:
+        try:  # (a) fails the phase at its end: (b) to (d) still run
+            check_anny_e2e(build_model, factory.anny_config, demo, cuda_lib, attention, norm)
+            ok_a = True
+        except AssertionError:
+            ok_a = False
+            log(17, "FAIL\n" + traceback.format_exc())
+        cfg = factory.anny_config(ANNY)
+        path = os.path.join(tmp, f"{ANNY}.pt")
+        t0 = time.perf_counter()
+        torch.save({"model_state_dict": anny_reference_state_dict(cfg),
+                    "args": argparse.Namespace(backbone=cfg.backbone, img_size=[cfg.img_size])},
+                   path)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        t_load = time.perf_counter() - t0
+        convert_reference_checkpoint_anny(ckpt, cfg)
+        t_conv = time.perf_counter() - t0 - t_load
+        nbytes = os.path.getsize(path)
+        log(17, f"{ANNY} reference checkpoint: {nbytes / 2**20:.1f} MiB written in "
+                f"{t_write:.2f} s; torch.load {t_load:.2f} s, convert {t_conv:.2f} s (host) "
+                f"[{card}]")
+        p50 = run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp)
+        pre = preprocess_array(synthetic_image(0, 480, 640), cfg.img_size)
+        x, K = (torch.from_numpy(a)[None].cuda() for a in (pre.x, pre.K))
+        models = check_anny_streams(build_model, cast_backbone_bf16, cfg, ckpt, x)
+        del ckpt
+        figures = time_anny(models, demo, x, K, card)
+        del models
+        torch.cuda.empty_cache()
+    finally:
+        if env is None:
+            os.environ.pop("ANNY_NPZ", None)
+        else:
+            os.environ["ANNY_NPZ"] = env
+    if not ok_a:
+        raise AssertionError("phase 17 (a) failed")
+    return {"file": (nbytes, t_load, t_conv), "p50": p50, **figures}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1630,10 +2014,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         if ref is not None:
             phase(16, run_3dpw_cli, build_model, cuda_lib, attention, norm, card, ref[0])
+        anny = phase(17, run_anny, build_model, demo, cast_backbone_bf16, cuda_lib, attention,
+                     norm, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref):
+                          cli_launches, ref, anny):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
@@ -1646,6 +2032,14 @@ def main() -> int:
     log("end", f"896_L bf16 forward, batch 1: heads {fwd['fwd_ms']:.3f} ms (phase 7); "
                f"heads {fwd_streams['heads']:.3f} ms, ring {fwd_streams['ring']:.3f} ms "
                f"(phase 13) [{card}]")
+
+    nbytes, t_load, t_conv = anny["file"]
+    log("end", f"{ANNY}: file {nbytes / 2**20:.1f} MiB, load {t_load:.2f} s, convert "
+               f"{t_conv:.2f} s; demo p50 heads {anny['p50']['heads']:.1f} ms, ring "
+               f"{anny['p50']['ring']:.1f} ms per image; forward wall / device busy / body "
+               f"model: " + ", ".join(f"{tp} {anny[tp][0]:.2f} / {anny[tp][1]:.2f} / "
+                                      f"{anny[tp][2]:.2f} ms" for tp in ("heads", "ring"))
+               + f"; FK {anny['fk'][0]} launches per call [{card}]")
 
     def entry(name, source, replaces, err, times):
         ms, plain_ms, library_ms, b_ms, b_by = times

@@ -133,3 +133,13 @@ def lbs_forward(model: BodyModel, rotmats, betas, expression: Optional[torch.Ten
         "world_rot": world_R,
         "rel_t": rel_t,
     }
+
+
+def world_transforms_homogeneous(out: dict):
+    """``[B, J, 4, 4]`` world transforms of an :func:`lbs_forward` output:
+    ``world_rot`` with the posed joint as translation (the Anny
+    ``bone_poses`` layout)."""
+    top = torch.cat([out["world_rot"], out["joints_fk"][..., None]], dim=-1)  # [B, J, 3, 4]
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)

@@ -12,6 +12,13 @@ weights are seeded random ones (for pipeline checks only). The overlay
 rendering flags of the JAX demo are not ported yet and are refused.
 :func:`run_image` is the per-image body; it takes a decoded uint8 array, so
 other drivers run exactly the demo's path.
+
+An Anny-family name (``multiHMR_672_L_anny``) runs ``MultiHMRAnny`` with the
+demo's FOV-``--fov`` K, so its persons' ``K`` is that K (``K_regressed`` and
+``fov`` are the network's own). This is a deliberate difference: the JAX
+demo raises a ``TypeError`` for such a name, as it passes ``fields=`` to
+``MultiHMRAnny.extract_persons``, which takes none; here it is called
+without it.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """Build a ready-to-run MultiHMR (``multihmr_tpu/factory.py``).
 
-The six SMPL-X configurations of ``named_config``. With a reference
+The six SMPL-X configurations of ``named_config``, and the Anny family (a
+name holding "anny": ``anny_config``, ``MultiHMRAnny``). With a reference
 ``multiHMR_*.pt`` (``checkpoint``) the weights are the file's, converted by
-``io/checkpoint.py::convert_reference_checkpoint``. Without one they are
-random, drawn on the CPU from ``torch.Generator().manual_seed(seed)`` so
-that one seed gives the same weights whatever the device, then moved to
-``device``. The Anny family waits for ROADMAP M8. The body model is the licensed SMPL-X neutral asset when it is
+``io/checkpoint.py::convert_reference_checkpoint`` (``_anny``). Without one
+they are random, drawn on the CPU from ``torch.Generator().manual_seed(seed)``
+so that one seed gives the same weights whatever the device, then moved to
+``device``. The SMPL-X body model is the licensed neutral asset when it is
 present under ``$SMPLX_DIR`` (default ``models``), else the synthetic
-stand-in with SMPL-X's dimensions.
+stand-in with SMPL-X's dimensions; the Anny one is ``$ANNY_NPZ``, else
+``$SMPLX_DIR/anny.npz`` (``tools/convert_anny.py`` writes it), else
+``synthetic_anny_model()``.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ from typing import Optional
 
 import torch
 
-from multihmr_tpu_torch.config import ModelConfig, named_config
+from multihmr_tpu_torch.config import named_config
+from multihmr_tpu_torch.bodymodel.anny import AnnyModel, load_anny_npz, synthetic_anny_model
 from multihmr_tpu_torch.bodymodel.assets import load_smplx_npz, smplx_like_synthetic
 from multihmr_tpu_torch.bodymodel.core import BodyModel
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
+from multihmr_tpu_torch.models.multihmr_anny import AnnyConfig, MultiHMRAnny, MultiHMRAnnyNet
 
 SMPLX_NAMES = (
     "multiHMR_896_L", "multiHMR_672_L", "multiHMR_672_B", "multiHMR_672_S",
@@ -50,29 +55,49 @@ def load_body_model(device, num_betas: int = 10) -> BodyModel:
     return BodyModel.from_arrays(smplx_like_synthetic(num_betas), device)
 
 
+def anny_config(name: str) -> AnnyConfig:
+    """The configuration of an Anny-family name (the JAX package's one)."""
+    return AnnyConfig(backbone="dinov2_vitl14", img_size=672)
+
+
+def load_anny_model(device) -> AnnyModel:
+    """``$ANNY_NPZ``, else ``$SMPLX_DIR/anny.npz``, else the synthetic stand-in."""
+    path = os.environ.get("ANNY_NPZ", os.path.join(smplx_dir(), "anny.npz"))
+    arrays = load_anny_npz(path) if os.path.exists(path) else synthetic_anny_model()
+    return AnnyModel.from_arrays(arrays, device)
+
+
+def _net(net_cls, cfg, tp_mode: str, seed: int, state: Optional[dict]):
+    """Seeded random weights, or ``state`` assigned into a meta-device build."""
+    if state is None:
+        return net_cls(cfg, tp_mode=tp_mode).init_weights(torch.Generator().manual_seed(seed))
+    with torch.device("meta"):  # no init: every tensor comes from the file
+        net = net_cls(cfg, tp_mode=tp_mode)
+    net.load_state_dict(state, strict=True, assign=True)
+    return net
+
+
 def build_model(name: str = "multiHMR_896_L", device="cuda", seed: int = 0,
-                cfg: Optional[ModelConfig] = None, tp_mode: str = "heads",
-                checkpoint=None) -> MultiHMR:
-    """MultiHMR for a named SMPL-X configuration on ``device``, with the
+                cfg=None, tp_mode: str = "heads", checkpoint=None):
+    """MultiHMR (MultiHMRAnny for an Anny-family name) on ``device``, with the
     weights of a reference ``checkpoint`` (path or loaded dict) or else
     seeded random ones. ``cfg`` overrides the named configuration;
     ``tp_mode`` "ring" runs the ViT's standard stream (K5), "heads" the
     channels-major one (K1, K2)."""
+    from multihmr_tpu_torch.io import checkpoint as ckpt
+
+    device = torch.device(device)
+    if "anny" in name:
+        cfg = cfg if cfg is not None else anny_config(name)
+        state = None if checkpoint is None else ckpt.convert_reference_checkpoint_anny(
+            checkpoint, cfg)
+        net = _net(MultiHMRAnnyNet, cfg, tp_mode, seed, state)
+        return MultiHMRAnny(cfg, load_anny_model(device), net=net.to(device).eval())
     if cfg is None:
-        if "anny" in name:
-            raise KeyError(f"{name!r}: the Anny family is not ported yet (ROADMAP M8)")
         if name not in SMPLX_NAMES:
             raise KeyError(f"{name!r} is not a ported configuration; known: {SMPLX_NAMES}")
         cfg = named_config(name)
-    device = torch.device(device)
-    if checkpoint is None:
-        net = MultiHMRNet(cfg, tp_mode=tp_mode).init_weights(torch.Generator().manual_seed(seed))
-    else:
-        from multihmr_tpu_torch.io.checkpoint import convert_reference_checkpoint
-
-        state = convert_reference_checkpoint(checkpoint, cfg)
-        with torch.device("meta"):  # no init: every tensor comes from the file
-            net = MultiHMRNet(cfg, tp_mode=tp_mode)
-        net.load_state_dict(state, strict=True, assign=True)
+    state = None if checkpoint is None else ckpt.convert_reference_checkpoint(checkpoint, cfg)
+    net = _net(MultiHMRNet, cfg, tp_mode, seed, state)
     bm = load_body_model(device, cfg.num_betas)
     return MultiHMR(cfg, bm, net=net.to(device).eval())

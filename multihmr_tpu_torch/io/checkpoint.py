@@ -16,8 +16,10 @@ a :class:`ModelConfig` (:func:`config_from_ckpt_args`), and
 DINOv2 backbone and heads in one file) onto the port's state dict. It builds
 the parameter tree the JAX package's ``convert_torch_checkpoint`` builds,
 leaf for leaf, and ``io/convert.py::params_from_jax`` takes that tree to
-the port's keys, so the reference → port mapping has one definition. The
-flax msgpack files of the JAX package do not load here.
+the port's keys, so the reference → port mapping has one definition.
+:func:`convert_reference_checkpoint_anny` does the same for the Anny family
+(``multiHMR_*_anny.pt``) through ``params_from_jax_anny``. The flax msgpack
+files of the JAX package do not load here.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from multihmr_tpu_torch.config import ModelConfig
-from multihmr_tpu_torch.io.convert import params_from_jax
+from multihmr_tpu_torch.io.convert import params_from_jax, params_from_jax_anny
 from multihmr_tpu_torch.ops.posenc import interpolate_dinov2_pos_embed
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
@@ -259,9 +261,9 @@ def expected_reference_shapes(cfg: ModelConfig) -> dict:
 
 
 def expected_reference_keys_anny(cfg) -> set:
-    """Every key the JAX package's Anny converter consumes (reference
-    multi_hmr_anny/multi_hmr.py naming), for ``bodymodel/manifest.py``'s
-    check of ``multiHMR_*_anny`` files. The Anny model itself is not ported."""
+    """Every key :func:`convert_reference_checkpoint_anny` consumes (reference
+    multi_hmr_anny/multi_hmr.py naming), also for ``bodymodel/manifest.py``'s
+    check of ``multiHMR_*_anny`` files."""
     keys = {"dec_to_token.weight", "dec_to_token.bias", "dec_pos_emb", "init_body_pose"}
     bb = "encoder.backbone."
     keys |= {
@@ -457,3 +459,104 @@ def convert_reference_checkpoint(ckpt_or_path, cfg: ModelConfig) -> dict:
     p["x_attention_head"] = head
 
     return params_from_jax({"params": p}, cfg)
+
+
+class _HintingSD(dict):
+    """dict whose KeyError names the missing checkpoint key and lists the
+    same-prefix keys that do exist (the JAX package's words)."""
+
+    def __missing__(self, k):
+        prefix = k.split(".")[0]
+        near = sorted(x for x in self if x.startswith(prefix))[:8]
+        raise KeyError(
+            f"checkpoint key {k!r} not found; available keys with prefix "
+            f"{prefix!r}: {near if near else sorted(self)[:8]}"
+        )
+
+
+def convert_reference_checkpoint_anny(ckpt_or_path, cfg) -> dict:
+    """A reference Anny checkpoint (path, ``{'model_state_dict', ...}`` or a
+    bare state dict) → the port's ``MultiHMRAnnyNet`` state dict (fp32 CPU
+    tensors) for the :class:`AnnyConfig` ``cfg``.
+
+    As the JAX package's ``convert_torch_checkpoint_anny``: ``body_model*``
+    keys are dropped, other keys it does not use (``useful_rotmat``) are
+    ignored, and the first missing key raises a ``KeyError`` that names it
+    and its same-prefix neighbours."""
+    if isinstance(ckpt_or_path, (str, os.PathLike)):
+        ckpt = torch.load(ckpt_or_path, map_location="cpu", weights_only=False)
+    else:
+        ckpt = ckpt_or_path
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    sd = _HintingSD({k: _fp32(v) for k, v in sd.items() if not k.startswith("body_model")})
+    vit = cfg.vit
+    g = cfg.grid_size
+    bb = "encoder.backbone."
+    pe_w = sd[bb + "patch_embed.proj.weight"]
+
+    def stacked(fmt, transpose=False):  # the JAX tree's scanned blocks: depth first
+        arrs = [sd[f"{bb}blocks.{i}.{fmt}"] for i in range(vit.depth)]
+        if transpose:
+            arrs = [_t(a) for a in arrs]
+        return np.stack(arrs, axis=0)
+
+    def seq_mlp(prefix):  # Sequential Linear-ReLU-Linear
+        return {"fc0": {"kernel": _t(sd[f"{prefix}.0.weight"]), "bias": sd[f"{prefix}.0.bias"]},
+                "fc1": {"kernel": _t(sd[f"{prefix}.2.weight"]), "bias": sd[f"{prefix}.2.bias"]}}
+
+    def dense(name):
+        return {"kernel": _t(sd[name + ".weight"]), "bias": sd[name + ".bias"]}
+
+    encoder = {
+        "backbone": {
+            "patch_embed": {"kernel": pe_w.transpose(2, 3, 1, 0).reshape(-1, vit.embed_dim),
+                            "bias": sd[bb + "patch_embed.proj.bias"]},
+            "cls_token": sd[bb + "cls_token"].reshape(1, 1, vit.embed_dim),
+            "pos_embed": interpolate_dinov2_pos_embed(sd[bb + "pos_embed"], g),
+            "norm": {"scale": sd[bb + "norm.weight"], "bias": sd[bb + "norm.bias"]},
+            "blocks": {"block": {
+                "norm1": {"scale": stacked("norm1.weight"), "bias": stacked("norm1.bias")},
+                "attn": {
+                    "qkv": {"kernel": stacked("attn.qkv.weight", True),
+                            "bias": stacked("attn.qkv.bias")},
+                    "proj": {"kernel": stacked("attn.proj.weight", True),
+                             "bias": stacked("attn.proj.bias")},
+                },
+                "ls1": {"gamma": stacked("ls1.gamma")},
+                "norm2": {"scale": stacked("norm2.weight"), "bias": stacked("norm2.bias")},
+                "mlp": {
+                    "fc1": {"kernel": stacked("mlp.fc1.weight", True),
+                            "bias": stacked("mlp.fc1.bias")},
+                    "fc2": {"kernel": stacked("mlp.fc2.weight", True),
+                            "bias": stacked("mlp.fc2.bias")},
+                },
+                "ls2": {"gamma": stacked("ls2.gamma")},
+            }},
+        },
+        "mlp_det": seq_mlp("encoder.mlp_det"),
+        "mlp_fov_unique": seq_mlp("encoder.mlp_fov_unique"),
+    }
+    decoder = {}
+    for i in range(cfg.xat_depth):
+        layer = f"decoder.transformer.layers.{i}."
+        for j, tag in [(0, "sa"), (1, "ca"), (2, "ff")]:
+            decoder[f"{tag}_norm{i}"] = {"scale": sd[layer + f"{j}.norm.weight"],
+                                         "bias": sd[layer + f"{j}.norm.bias"]}
+        decoder[f"sa{i}"] = {"to_qkv": {"kernel": _t(sd[layer + "0.fn.to_qkv.weight"])},
+                             "to_out": dense(layer + "0.fn.to_out.0")}
+        decoder[f"ca{i}"] = {"to_kv": {"kernel": _t(sd[layer + "1.fn.to_kv.weight"])},
+                             "to_q": {"kernel": _t(sd[layer + "1.fn.to_q.weight"])},
+                             "to_out": dense(layer + "1.fn.to_out.0")}
+        decoder[f"ff{i}"] = {"fc1": dense(layer + "2.fn.net.0"), "fc2": dense(layer + "2.fn.net.3")}
+    params = {
+        "encoder": encoder,
+        "dec_to_token": dense("dec_to_token"),
+        "decoder": decoder,
+        "mlp_offset": seq_mlp("mlp_offset"),
+        "mlp_pose": seq_mlp("mlp_pose"),
+        "mlp_shape": seq_mlp("mlp_shape"),
+        "mlp_dist": seq_mlp("mlp_dist"),
+    }
+    constants = {"dec_pos_emb": sd["dec_pos_emb"].reshape(g, g, -1),
+                 "init_body_pose": sd["init_body_pose"]}
+    return params_from_jax_anny({"params": params, "constants": constants}, cfg)

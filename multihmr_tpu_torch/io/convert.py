@@ -1,10 +1,12 @@
 """Carry weights across from the JAX package.
 
 :func:`params_from_jax` maps the JAX package's ``{"params": ...}`` tree (as
-numpy arrays; no jax is imported here) onto the port's ``state_dict``:
+numpy arrays; no jax is imported here) onto the port's ``state_dict``, and
+:func:`params_from_jax_anny` the Anny family's ``{"params", "constants"}``:
 
-  * the scanned ViT blocks (``backbone/blocks/block/...``, each leaf with a
-    leading depth axis) are unstacked into ``backbone.blocks.{i}....``;
+  * the scanned ViT blocks (``backbone/blocks/block/...``, under
+    ``encoder/`` for Anny, each leaf with a leading depth axis) are
+    unstacked into ``backbone.blocks.{i}....``;
   * Dense ``kernel [in, out]`` becomes ``nn.Linear`` ``weight [out, in]``;
     the patch-embed kernel keeps its (row, col, channel) unfold order, so the
     port's unfold feeds it unchanged;
@@ -24,6 +26,7 @@ import torch
 from multihmr_tpu_torch.config import ModelConfig
 
 _STACKED = ("backbone", "blocks", "block")
+_STACKED_ANNY = ("encoder",) + _STACKED
 
 
 def _flatten(tree: Mapping, prefix=()) -> dict:
@@ -46,16 +49,18 @@ def _leaf(path: tuple, arr: np.ndarray):
     return mods + [name], arr
 
 
-def rename_tree(tree: Mapping, depth: int) -> dict:
-    """JAX parameter tree → {port key: numpy array}, unvalidated."""
+def rename_tree(tree: Mapping, depth: int, stacked: tuple = _STACKED) -> dict:
+    """JAX parameter tree → {port key: numpy array}, unvalidated. Leaves
+    under the ``stacked`` prefix carry the scanned blocks' depth axis."""
     sd = {}
+    n = len(stacked)
     for path, arr in _flatten(tree).items():
-        if path[:3] == _STACKED:
-            mods, arr = _leaf(path[3:], arr)
+        if path[:n] == stacked:
+            mods, arr = _leaf(path[n:], arr)
             if arr.shape[0] != depth:
                 raise ValueError(f"{'/'.join(path)}: leading axis {arr.shape[0]} "
                                  f"is not the depth {depth}")
-            items = [(".".join(["backbone", "blocks", str(i)] + mods), arr[i])
+            items = [(".".join(list(stacked[:-1]) + [str(i)] + mods), arr[i])
                      for i in range(depth)]
         else:
             mods, arr = _leaf(path, arr)
@@ -67,13 +72,9 @@ def rename_tree(tree: Mapping, depth: int) -> dict:
     return sd
 
 
-def params_from_jax(params: Mapping, cfg: ModelConfig) -> dict:
-    """JAX ``{"params": tree}`` (numpy leaves) → port ``state_dict`` (fp32)."""
-    from multihmr_tpu_torch.models.multihmr import MultiHMRNet
-
-    sd = rename_tree(params["params"] if "params" in params else params, cfg.vit.depth)
-    with torch.device("meta"):
-        want = MultiHMRNet(cfg).state_dict()
+def _fill(sd: dict, want: dict) -> dict:
+    """Renamed JAX leaves → fp32 tensors for exactly the port's keys and
+    shapes ``want``; anything else raises."""
     unused = sorted(set(sd) - set(want))
     missing = sorted(set(want) - set(sd))
     if unused or missing:
@@ -85,3 +86,30 @@ def params_from_jax(params: Mapping, cfg: ModelConfig) -> dict:
             raise ValueError(f"{k}: JAX gives {sd[k].shape}, port wants {tuple(t.shape)}")
         out[k] = torch.from_numpy(np.array(sd[k], dtype=np.float32))
     return out
+
+
+def params_from_jax(params: Mapping, cfg: ModelConfig) -> dict:
+    """JAX ``{"params": tree}`` (numpy leaves) → port ``state_dict`` (fp32)."""
+    from multihmr_tpu_torch.models.multihmr import MultiHMRNet
+
+    sd = rename_tree(params["params"] if "params" in params else params, cfg.vit.depth)
+    with torch.device("meta"):
+        want = MultiHMRNet(cfg).state_dict()
+    return _fill(sd, want)
+
+
+def params_from_jax_anny(variables: Mapping, cfg) -> dict:
+    """JAX Anny ``{"params": tree, "constants": {"dec_pos_emb",
+    "init_body_pose"}}`` (numpy leaves) → ``MultiHMRAnnyNet`` state dict
+    (fp32); the constants fill the buffers of the same names."""
+    from multihmr_tpu_torch.models.multihmr_anny import MultiHMRAnnyNet
+
+    tree = dict(variables["params"])
+    for k, v in variables["constants"].items():
+        if k in tree:
+            raise KeyError(f"{k} is both a JAX parameter and a constant")
+        tree[k] = v
+    sd = rename_tree(tree, cfg.vit.depth, _STACKED_ANNY)
+    with torch.device("meta"):
+        want = MultiHMRAnnyNet(cfg).state_dict()
+    return _fill(sd, want)

@@ -1,7 +1,8 @@
 """Rotation algebra (``multihmr_tpu/ops/rotations.py``).
 
-6D → SO(3) Gram-Schmidt, Rodrigues rotvec → rotmat, and rotmat → rotvec
-through a branch-free Shepperd quaternion, and the scaled Procrustes
+6D → SO(3) Gram-Schmidt (the SMPL-X row layout and the Anny column-pair
+layout), Rodrigues rotvec → rotmat, rotmat → rotvec through a branch-free
+Shepperd quaternion, the homogeneous lift, and the scaled Procrustes
 alignment of the PA metrics. The clamps that keep gradients finite at
 theta → 0 are kept as the JAX package has them.
 """
@@ -22,6 +23,20 @@ def rot6d_to_rotmat(x):
     batch = x.shape[:-1]
     x = x.reshape(batch + (2, 3))
     a1, a2 = x[..., 0, :], x[..., 1, :]
+    b1 = _normalize(a1)
+    b2 = _normalize(a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1)
+    b3 = torch.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rot6d_cols_to_rotmat(x):
+    """``(..., 6)`` in the Anny column-pair layout ``[a1x a2x a1y a2y a1z a2z]``
+    (the first two columns of R flattened row-major) → ``(..., 3, 3)``. The
+    identity's 6d differs from :func:`rot6d_to_rotmat`'s row layout, so the
+    wrong decoder silently breaks every identity-initialised joint."""
+    batch = x.shape[:-1]
+    x = x.reshape(batch + (3, 2))
+    a1, a2 = x[..., 0], x[..., 1]
     b1 = _normalize(a1)
     b2 = _normalize(a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1)
     b3 = torch.cross(b1, b2, dim=-1)
@@ -98,6 +113,14 @@ def unitquat_to_rotvec(q):
 def rotmat_to_rotvec(R):
     """Rotation matrix → axis-angle."""
     return unitquat_to_rotvec(rotmat_to_unitquat(R))
+
+
+def rotation_to_homogeneous(R):
+    """``(..., 3, 3)`` rotations → ``(..., 4, 4)`` homogeneous matrices with
+    zero translation."""
+    h = torch.nn.functional.pad(R, (0, 1, 0, 1))
+    h[..., 3, 3] = 1.0
+    return h
 
 
 def rigid_points_registration(x, y, compute_scaling: bool = True):

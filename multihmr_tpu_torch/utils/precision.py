@@ -14,10 +14,12 @@ from multihmr_tpu_torch.models.vit import TLayerNorm
 
 
 def cast_backbone_bf16(net: nn.Module) -> nn.Module:
-    """Cast ``net.backbone``'s parameters to bf16, except its LayerNorms."""
-    keep = {id(p) for m in net.backbone.modules()
+    """Cast the ViT's parameters to bf16, except its LayerNorms: ``net.backbone``,
+    or ``net.encoder.backbone`` in the Anny layout."""
+    backbone = net.backbone if hasattr(net, "backbone") else net.encoder.backbone
+    keep = {id(p) for m in backbone.modules()
             if isinstance(m, (TLayerNorm, nn.LayerNorm)) for p in m.parameters()}
-    for p in net.backbone.parameters():
+    for p in backbone.parameters():
         if id(p) not in keep:
             p.data = p.data.to(torch.bfloat16)
     return net

@@ -364,8 +364,12 @@ def test_train_pretrained_reference_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 def test_build_model_anny_names_m8():
-    """The Anny branch of the JAX factory is not ported: its names raise."""
+    """The Anny family (ROADMAP M8) is ported: an Anny-family name builds the
+    Anny system, as the JAX factory's dispatch does (tests/test_torch_anny_io.py
+    holds it to the JAX package)."""
     from multihmr_tpu_torch.factory import build_model
+    from multihmr_tpu_torch.models.multihmr_anny import MultiHMRAnny
+    from tests.test_torch_anny import _tiny_cfgs
 
-    with pytest.raises(KeyError, match="M8"):
-        build_model("multiHMR_672_L_anny", device="cpu", checkpoint="multiHMR_672_L_anny.pt")
+    model = build_model("multiHMR_672_L_anny", device="cpu", cfg=_tiny_cfgs()[1])
+    assert isinstance(model, MultiHMRAnny) and len(model.body_model.bone_labels) == 163
