@@ -10,8 +10,9 @@ the BEDLAM training CLI (``cli/train.py``) with its epoch-end BEDLAM and EHF
 evaluation, and the same entry points from seeded checkpoints in the
 reference ``multiHMR_*.pt`` layout (the demo's ``--ckpt``, the CLI's
 ``--pretrained`` with its 3DPW evaluation), on the ViT's standard stream
-(``--tp_mode ring``, K5) and its channels-major one (``heads``, K1 and K2).
-Phases, one line each:
+(``--tp_mode ring``, K5) and its channels-major one (``heads``, K1 and K2),
+and serving ``multiHMR_672_B`` at batch 8 through the HTTP server with its
+overlay renderer. Phases, one line each:
 
   1. the card, its name and power limit (nvidia-smi);
   2. the kernel build;
@@ -83,10 +84,10 @@ Phases, one line each:
      pos-embed grid) for 672_S and 896_L, saved with their ``args``: their
      size, ``torch.load`` and convert seconds; 672_S fp32 built from its
      file, card against CPU on both streams (detections equal, outputs
-     within phase 5's 1e-3); 896_L through ``cli/demo.py --ckpt`` on three
-     images (heads: 24 K1 and 48 K2 per image, finite meshes, the demo's
-     p50 ms per image) and through the demo's per-image body on the ring
-     stream (24 K5, no K1 or K2);
+     within phase 5's 1e-3); 896_L through ``cli/demo.py --ckpt`` on two
+     images with their overlays (heads: 24 K1 and 48 K2 per image, finite
+     meshes, the demo's p50 ms per image) and through the demo's per-image
+     body on the ring stream (24 K5, no K1 or K2);
  16. the training CLI's 3DPW evaluation from those files, in a temporary
      directory with a seeded 3DPW sequence (3 frames of 1080 x 1920 JPEG,
      a male and a female person whose GT is the evaluated model's own first
@@ -105,13 +106,35 @@ Phases, one line each:
      every output within phase 5's 1e-3, 4 K1 + 8 K2 or 4 K5 launches);
      (b) a seeded reference-layout ``multiHMR_672_L_anny.pt`` at full width
      (its size, load and convert seconds) through ``cli/demo.py --ckpt`` on
-     three images per stream (24 K1 + 48 K2 and no K5 per image on heads,
+     two images per stream (24 K1 + 48 K2 and no K5 per image on heads,
      24 K5 and no K1/K2 on ring; finite meshes; persons sorted near to far;
      the demo's p50 ms per image); (c) the file's weights in bf16, ring
      against heads and each against an fp32 control (patch tokens, phase
      13's limits); (d) per stream the forward's wall, device busy ms and
      the body model's share of the wall, the launches of one 163-bone FK
-     and the time of the product with the zero pose correctives.
+     and the time of the product with the zero pose correctives;
+ 18. serving ``multiHMR_672_B`` (ViT-B/14, 2,305 tokens, 12 blocks) at batch
+     8 with seeded weights and the bf16 backbone: (a) ``python -m
+     multihmr_tpu_torch.cli.serve`` as a subprocess, /healthz, 4 JPEGs
+     answered 200 with JSON; (b) ``make_server`` in process, 48 seeded JPEGs
+     (640x480, 1280x720, 480x640) from 12 clients: all 200, /stats with 48
+     requests and a mean batch above 1, 12 K1 + 24 K2 and no K5 per batch,
+     and each request's persons equal to its image alone in slot 0 of a
+     batch-8 forward (1e-5); a ring server: 12 K5 and no K1/K2 per batch;
+     (c) K1 [8,12,64,2312] kv_len 2305, K2 [8,768,2312] and K5
+     [8,12,2305,64] against their plain versions under phases 3, 4 and 12's
+     limits; (d) ``?render=1``: a PNG of the original size whose
+     X-Person-Count is the JSON count, equal to the compiled render of the
+     request's meshes, and the compiled rasterizer bitwise equal to its
+     numpy version on two of them, with both times; (e) a burst of 32 past
+     ``max_queue`` 4 gives 429 with Retry-After, a 1 ms deadline gives 503,
+     never a 500; (f) 256 requests from 16 clients against the full and the
+     ``json_only`` server: images/s, latency p50/p95, mean batch, the
+     worker's dispatch and extract p50, the card's busy share (profiler),
+     and again with the readback synced inside ``batch_fn``; (g)
+     ``cli/app.build_infer`` on 672_S: overlay and ``.glb``, then the cache;
+     (h) ``cli/demo.py --extra_views 1 --distance 1 --save_mesh 1`` on two
+     images at 896_L: every file the JAX demo writes, 24 K1 + 48 K2 each.
 
 Then a JSON line of the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
@@ -1272,8 +1295,10 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
                        norm, card, tmp):
     """Reference-layout multiHMR_672_S and multiHMR_896_L files: 672_S fp32
     card against CPU on both streams; 896_L through the demo's ``--ckpt``
-    (heads) and its per-image body (ring), three images each. Returns the
-    two paths and the figures for the end lines."""
+    (heads) and its per-image body (ring), two images each (the demo
+    renders every image's overlay, seconds for the synthetic body model's
+    random faces). Returns the two paths and the figures for the end
+    lines."""
     import contextlib
     import io
 
@@ -1322,21 +1347,22 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
     os.makedirs(img_dir)
     from PIL import Image
 
-    for i, (h, w) in enumerate([(480, 640), (800, 450), (896, 896)]):
+    for i, (h, w) in enumerate([(480, 640), (800, 450)]):
         Image.fromarray(synthetic_image(i, h, w)).save(os.path.join(img_dir, f"im{i}.png"))
     # heads: the demo CLI itself, each image's launches counted around the
-    # per-image body it calls
-    per_image, run_image = [], demo.run_image
+    # call that enqueues its forward (its meshes checked after the run, not
+    # to sync inside the demo's pipeline)
+    per_image, v3ds, start_image = [], [], demo.start_image
 
     def counted(model, *args, **kwargs):
         before = dict(cuda_lib.LAUNCHES)
-        out, persons = run_image(model, *args, **kwargs)
-        per_image.append((tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names),
-                          bool(torch.isfinite(out["v3d"]).all()), tuple(out["v3d"].shape)))
-        return out, persons
+        out, pending = start_image(model, *args, **kwargs)
+        per_image.append(tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names))
+        v3ds.append(out["v3d"])
+        return out, pending
 
     buf = io.StringIO()
-    demo.run_image = counted
+    demo.start_image = counted
     cuda_lib.reset_launches()  # the demo's run starts here
     t0 = time.perf_counter()
     try:
@@ -1345,14 +1371,16 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
                        "--model_name", "multiHMR_896_L", "--ckpt", paths["multiHMR_896_L"],
                        "--save_mesh", "1"])
     finally:
-        demo.run_image = run_image
+        demo.start_image = start_image
     secs = time.perf_counter() - t0
     whole = {k: cuda_lib.LAUNCHES[k] for k in names}  # read just after it
+    per_image = [(c, bool(torch.isfinite(v).all()), tuple(v.shape))
+                 for c, v in zip(per_image, v3ds)]
     lines = buf.getvalue().splitlines()
     for line in lines:
         log(15, "  " + line)
     summary = json.loads(lines[-1])
-    ok_h = (len(per_image) == 3 and not any("WARNING" in ln for ln in lines)
+    ok_h = (len(per_image) == 2 and not any("WARNING" in ln for ln in lines)
             and all(c == (24, 48, 0) and fin and shp == (1, 16, 10475, 3)
                     for c, fin, shp in per_image))
     log(15, f"896_L bf16 demo --ckpt (heads), {secs:.1f} s with the load: per image "
@@ -1365,7 +1393,7 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
     cast_backbone_bf16(model.net)
     ok_r = True
     cuda_lib.reset_launches()  # the ring run starts here
-    for i in range(3):
+    for i in range(2):
         img = np.asarray(Image.open(os.path.join(img_dir, f"im{i}.png")).convert("RGB"))
         before = dict(cuda_lib.LAUNCHES)
         out, persons = demo.run_image(model, img, f"im{i}", os.path.join(tmp, "demo_out"),
@@ -1720,9 +1748,10 @@ def check_anny_e2e(build_model, anny_config, demo, cuda_lib, attention, norm,
 
 def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
     """(b) ``cli/demo.py --model_name multiHMR_672_L_anny --ckpt <path>`` on
-    three images per stream (ring: the factory's ``build_model`` with
-    ``tp_mode="ring"``): per image launches, finite meshes, persons sorted
-    near to far. Returns the demo's p50 ms per image per stream."""
+    two images per stream (ring: the factory's ``build_model`` with
+    ``tp_mode="ring"``), overlays included: per image launches, finite
+    meshes, persons sorted near to far. Returns the demo's p50 ms per image
+    per stream."""
     import contextlib
     import functools
     import io
@@ -1731,26 +1760,30 @@ def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
 
     img_dir = os.path.join(tmp, "anny_in")
     os.makedirs(img_dir)
-    for i, (h, w) in enumerate([(480, 640), (800, 450), (672, 672)]):
+    for i, (h, w) in enumerate([(480, 640), (800, 450)]):
         Image.fromarray(synthetic_image(10 + i, h, w)).save(os.path.join(img_dir, f"im{i}.png"))
     names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
     slots = factory.anny_config(ANNY).max_people
-    build, run_image = factory.build_model, demo.run_image
+    build, start_image, finish_image = factory.build_model, demo.start_image, demo.finish_image
     p50, ok = {}, True
     for tp_mode in ("heads", "ring"):
-        per_image = []
+        launched, v3ds, found = [], [], []
 
         def counted(model, *args, **kwargs):
             before = dict(cuda_lib.LAUNCHES)
-            out, persons = run_image(model, *args, **kwargs)
+            out, pending = start_image(model, *args, **kwargs)
+            launched.append(tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names))
+            v3ds.append(out["v3d"])
+            return out, pending
+
+        def finished(*args, **kwargs):
+            persons = finish_image(*args, **kwargs)
             depths = [float(p["transl"][2]) for p in persons]
-            per_image.append((tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names),
-                              bool(torch.isfinite(out["v3d"]).all()), tuple(out["v3d"].shape),
-                              len(persons), depths == sorted(depths)))
-            return out, persons
+            found.append((len(persons), depths == sorted(depths)))
+            return persons
 
         buf = io.StringIO()
-        demo.run_image = counted
+        demo.start_image, demo.finish_image = counted, finished
         factory.build_model = functools.partial(build, tp_mode=tp_mode)
         cuda_lib.reset_launches()  # the demo's run starts here
         t0 = time.perf_counter()
@@ -1760,14 +1793,17 @@ def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
                            os.path.join(tmp, f"anny_out_{tp_mode}"), "--model_name", ANNY,
                            "--ckpt", path, "--save_mesh", "1"])
         finally:
-            demo.run_image, factory.build_model = run_image, build
+            demo.start_image, demo.finish_image = start_image, finish_image
+            factory.build_model = build
         secs = time.perf_counter() - t0
         whole = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        per_image = [(c, bool(torch.isfinite(v).all()), tuple(v.shape)) + f
+                     for c, v, f in zip(launched, v3ds, found)]
         lines = buf.getvalue().splitlines()
         for line in lines:
             log(17, "  " + line)
         p50[tp_mode] = json.loads(lines[-1])["p50_image_ms"]
-        ok_t = (len(per_image) == 3 and not any("WARNING" in ln for ln in lines)
+        ok_t = (len(per_image) == 2 and not any("WARNING" in ln for ln in lines)
                 and all(c == ANNY_LAUNCHES[tp_mode] and fin
                         and shp == (1, slots, ANNY_VERTICES, 3) and n > 0 and srt
                         for c, fin, shp, n, srt in per_image))
@@ -1951,6 +1987,568 @@ def run_anny(build_model, demo, cast_backbone_bf16, cuda_lib, attention, norm, c
     return {"file": (nbytes, t_load, t_conv), "p50": p50, **figures}
 
 
+# ---- phase 18: serving multiHMR_672_B at batch 8
+
+SERVE = "multiHMR_672_B"
+SERVE_SIZES = [(480, 640), (720, 1280), (640, 480)]  # (h, w): 640x480, 1280x720, 480x640
+# a served person's JSON fields against the same image alone in slot 0 of a
+# batch-8 forward through the same batch_fn, relative to each field's largest
+# magnitude: each slot's computation does not read the others
+SERVE_TOL = 1e-5
+SERVE_LAUNCHES = {"heads": (12, 24, 0), "ring": (0, 0, 12)}  # K1/K2/K5 per 672_B batch
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def jpeg_bytes(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def decode(payload: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(payload)).convert("RGB"))
+
+
+def http_post(port, payload, query="", timeout=600):
+    """(status, headers, body) of POST /infer{query}."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/infer{query}", data=payload,
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def http_get_json(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def run_clients(port, payloads, n_threads, query=""):
+    """POST every payload from ``n_threads`` client threads, all started
+    together; returns ([(status, headers, body, latency s)] in order, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(p):
+        t0 = time.perf_counter()
+        st, h, b = http_post(port, p, query)
+        return st, h, b, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(n_threads) as ex:
+        res = list(ex.map(one, payloads))
+    return res, time.perf_counter() - t0
+
+
+class Serving:
+    """A ``make_server`` on an ephemeral port, served from a thread."""
+
+    def __init__(self, model, **kw):
+        from multihmr_tpu_torch.serve import make_server, serve_forever_in_thread
+
+        self.srv, self.batcher = make_server(model, port=0, **kw)
+        self.port = self.srv.server_address[1]
+        serve_forever_in_thread(self.srv)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.batcher.close()
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (else what /proc/cpuinfo says of it) and its
+    count of logical CPUs."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                k, _, v = ln.partition(":")
+                fields.setdefault(k.strip().lower(), v.strip())
+    except OSError:
+        pass
+    name = fields.get("model name") or fields.get("cpu model") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model") if fields.get(k))
+    return f"{name or 'model not reported'} ({platform.machine()}), {os.cpu_count()} logical CPUs"
+
+
+def ellipsoid_mesh(n_lat, n_lon):
+    """A closed UV ellipsoid of person-like extent: (vertices, faces)."""
+    th = np.linspace(0, np.pi, n_lat + 1)
+    ph = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    v = np.stack([np.sin(th)[:, None] * np.cos(ph)[None],
+                  np.cos(th)[:, None] * np.ones_like(ph)[None],
+                  np.sin(th)[:, None] * np.sin(ph)[None]], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(n_lat), np.arange(n_lon), indexing="ij")
+    a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+    f = np.stack([np.stack([a, a + n_lon, b], -1), np.stack([b, a + n_lon, b + n_lon], -1)],
+                 2).reshape(-1, 3)
+    return (v * np.array([0.25, 0.8, 0.2])).astype(np.float32), f
+
+
+def serve_cli(card):
+    """(a) ``python -m multihmr_tpu_torch.cli.serve`` as a user starts it."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out_path = os.path.join(REPO, "chiprun_out", "chip_smoke", "serve_cli.log")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "multihmr_tpu_torch.cli.serve",
+                                 "--model_name", SERVE, "--port", str(port)], cwd=REPO,
+                                stdout=out, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                with open(out_path) as f:
+                    raise AssertionError(f"cli.serve exited with {proc.returncode}:\n"
+                                         + f.read()[-4000:])
+            try:
+                health = http_get_json(port, "/healthz")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("cli.serve gave no /healthz within 300 s")
+                time.sleep(0.25)
+        t_up = time.perf_counter() - t0
+        payloads = [jpeg_bytes(synthetic_image(40 + i, h, w))
+                    for i, (h, w) in enumerate(SERVE_SIZES + SERVE_SIZES[:1])]
+        res, wall = run_clients(port, payloads, 4)
+        answers = [json.loads(b) if st == 200 else None for st, _, b, _ in res]
+        ok = health == {"status": "ok"} and all(a is not None and "persons" in a for a in answers)
+        log(18, f"(a) python -m multihmr_tpu_torch.cli.serve --model_name {SERVE}: /healthz "
+                f"after {t_up:.1f} s (start, build, warm-up batch); 4 JPEGs from 4 clients: "
+                f"status {[r[0] for r in res]}, persons {[a and a['count'] for a in answers]}, "
+                f"{wall:.2f} s [{card}] {'ok' if ok else 'FAIL'}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if not ok:
+        raise AssertionError("(a) cli.serve did not answer 4 requests with 200 and JSON")
+
+
+def json_err(a: dict, b: dict) -> float:
+    """Largest error of a JSON person against another, each field relative
+    to its largest magnitude; inf when n_j2d differs."""
+    if a["n_j2d"] != b["n_j2d"]:
+        return float("inf")
+    errs = []
+    for k in ("score", "loc", "transl", "transl_pelvis"):
+        va, vb = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        errs.append(np.abs(va - vb).max() / max(np.abs(va).max(), 1.0))
+    return float(max(errs))
+
+
+def slot0_reference(batcher, payload, S):
+    """The JSON persons of one request's image alone in slot 0 of a full
+    batch, through the served batch_fn and extract_fn."""
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+    from multihmr_tpu_torch.serve.server import _persons_json
+
+    pre = preprocess_array(decode(payload), S)
+    x = np.zeros((batcher.max_batch, S, S, 3), np.uint8)
+    x[0] = pre.resized
+    K = np.tile(np.eye(3, dtype=np.float32), (batcher.max_batch, 1, 1))
+    K[0] = pre.K
+    persons = batcher.extract_fn(batcher.batch_fn(x, K), 1)[0]
+    return json.loads(_persons_json(persons))
+
+
+def serve_counted(model, ring_model, cuda_lib, names, card):
+    """(b) 48 requests from 12 clients through make_server: answers, batching,
+    launches per batch, each result against slot 0; then a ring server."""
+    images = [synthetic_image(100 + i, *SERVE_SIZES[i % 3]) for i in range(48)]
+    payloads = [jpeg_bytes(img) for img in images]
+    S = model.cfg.img_size
+    with Serving(model, max_batch=8, max_delay_ms=5.0) as s:
+        cuda_lib.reset_launches()  # the serving path's run starts here
+        res, wall = run_clients(s.port, payloads, 12)
+        launches = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        snap = http_get_json(s.port, "/stats")
+        answers = [json.loads(b) if st == 200 else None for st, _, b, _ in res]
+        n_ok = sum(a is not None for a in answers)
+        nb = snap["batches"]
+        want = tuple(nb * c for c in SERVE_LAUNCHES["heads"])
+        ok = (n_ok == 48 and snap["requests"] == 48 and snap["mean_batch_size"] > 1
+              and launches == want)
+        log(18, f"(b) {SERVE} bf16 heads, max_batch 8, max_delay_ms 5: 48 JPEGs (640x480, "
+                f"1280x720, 480x640) from 12 clients: {n_ok} answered 200 in {wall:.2f} s; "
+                f"/stats requests {snap['requests']}, batches {nb}, mean batch size "
+                f"{snap['mean_batch_size']}, histogram {snap['batch_size_hist']}; launches "
+                f"K1/K2/K5 {launches} (want {want} = {nb} x {SERVE_LAUNCHES['heads']}) "
+                f"[{card}] {'ok' if ok else 'FAIL'}")
+        worst, counts_equal = 0.0, True
+        for payload, a in zip(payloads, answers):
+            if a is None:
+                continue
+            ref = slot0_reference(s.batcher, payload, S)
+            counts_equal = counts_equal and ref["count"] == a["count"]
+            for pa, pr in zip(a["persons"], ref["persons"]):
+                worst = max(worst, json_err(pr, pa))
+        persons = [a["count"] for a in answers if a is not None]
+        ok_ref = counts_equal and worst <= SERVE_TOL
+        log(18, f"(b) each request against its image alone in slot 0 of a batch-8 forward: "
+                f"counts {'equal' if counts_equal else 'DIFFER'} ({sum(persons)} persons, "
+                f"{min(persons)}-{max(persons)} per image), worst field error {worst:.3e} "
+                f"(tol {SERVE_TOL:g}) {'ok' if ok_ref else 'FAIL'}")
+        ok = ok and ok_ref
+    with Serving(ring_model, max_batch=8, max_delay_ms=5.0, json_only=True) as s:
+        cuda_lib.reset_launches()  # the ring server's run starts here
+        res, wall = run_clients(s.port, payloads[:16], 8)
+        launches_r = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        snap_r = http_get_json(s.port, "/stats")
+        want_r = tuple(snap_r["batches"] * c for c in SERVE_LAUNCHES["ring"])
+        ok_r = all(r[0] == 200 for r in res) and launches_r == want_r
+        log(18, f"(b) {SERVE} bf16 ring, json_only: 16 JPEGs from 8 clients in {wall:.2f} s, "
+                f"status {sorted(set(r[0] for r in res))}, batches {snap_r['batches']}, "
+                f"launches K1/K2/K5 {launches_r} (want {want_r}) {'ok' if ok_r else 'FAIL'}")
+    if not (ok and ok_r):
+        raise AssertionError("(b) the served batches disagree")
+    return payloads, {"launches": launches, "batches": nb, "ring": (launches_r,
+                                                                     snap_r["batches"])}
+
+
+def check_serving_shapes(attention, norm):
+    """(c) K1, K2 and K5 against their plain versions at the 672_B batch-8
+    shapes, under phases 3, 4 and 12's limits. Returns the max abs errors."""
+    errs = {}
+    q, k, v = qkv_views(2312, torch.bfloat16, heads=12, kv_len=2305, batch=8)
+    out, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=2305)
+    ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=2305)
+    ok, errs["K1"], text = fwd_check(out[..., :2305], ref_out[..., :2305], lse[..., :2305],
+                                     ref_lse[..., :2305])
+    log(18, f"(c) K1 [8,12,64,2312] bf16 kv_len=2305: {text} {'ok' if ok else 'FAIL'}")
+    del q, k, v, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((8, 768, 2312), device="cuda", generator=g) * 2 + 0.5
+    scale = 1 + 0.1 * torch.randn(768, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(768, device="cuda", generator=g)
+    for pair, ok_p, err, text in k2_cases(norm, x, scale, bias):
+        log(18, f"(c) K2 [8,768,2312] {pair}: {text} {'ok' if ok_p else 'FAIL'}")
+        ok = ok and ok_p
+        if pair == "bfloat16->bfloat16":
+            errs["K2"] = err
+    del x
+    q, k, v = std_qkv_views(2305, torch.bfloat16, heads=12, seed=2305, batch=8)
+    ref = [attention.flash_fwd_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(8)]
+    ref_out, ref_lse = (torch.cat(parts) for parts in zip(*ref))
+    del ref
+    out, lse = attention._flash_fwd_std(q, k, v, out=K5_LAYOUTS["[B,N,H,64]"](8, 12, 2305,
+                                                                                torch.bfloat16))
+    ok_5, errs["K5"], text = fwd_check(out, ref_out, lse, ref_lse)
+    log(18, f"(c) K5 [8,12,2305,64] bf16 into [B,N,H,64]: {text} {'ok' if ok_5 else 'FAIL'}")
+    del q, k, v, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    if not (ok and ok_5):
+        raise AssertionError("(c) a kernel disagrees with its plain version at a serving shape")
+    return errs
+
+
+def serve_render(model, payload, card):
+    """(d) ?render=1 on one request: a PNG of the original size, its person
+    count, and the compiled rasterizer against its plain version."""
+    import io
+
+    from PIL import Image
+
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array, rescale_K_to_original
+    from multihmr_tpu_torch.render import render_meshes
+
+    img = decode(payload)
+    h, w = img.shape[:2]
+    S = model.cfg.img_size
+    with Serving(model, max_batch=8, max_delay_ms=5.0) as s:
+        st_j, _, body_j = http_post(s.port, payload)
+        t0 = time.perf_counter()
+        st, headers, body = http_post(s.port, payload, "?render=1")
+        t_req = time.perf_counter() - t0
+        pre = preprocess_array(img, S)
+        persons = s.batcher.submit(pre.resized, pre.K)
+    count = json.loads(body_j)["count"] if st_j == 200 else None
+    png = np.asarray(Image.open(io.BytesIO(body))) if st == 200 else None
+    faces = model.body_model.faces.cpu().numpy()
+    K_full = rescale_K_to_original(pre.K[None], w, h, S)[0]
+    meshes = [p["v3d"] for p in persons]
+    t0 = time.perf_counter()
+    full = render_meshes(img, meshes, [faces] * len(meshes), K_full)
+    t_all = time.perf_counter() - t0
+    sub = meshes[:2]  # the numpy version takes seconds per mesh of this body model
+    t0 = time.perf_counter()
+    compiled = render_meshes(img, sub, [faces] * len(sub), K_full)
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = render_meshes(img, sub, [faces] * len(sub), K_full, plain=True)
+    t_p = time.perf_counter() - t0
+    # 16 smooth meshes of SMPL-X's size (UV ellipsoids of 10,585 vertices and
+    # 20,880 faces, small triangles as a body mesh has) at 2.5-8 m
+    ell_v, ell_f = ellipsoid_mesh(72, 145)
+    rng = np.random.default_rng(18)
+    smooth = [(ell_v * rng.uniform(0.7, 1.3) + np.array(
+        [rng.uniform(-1.5, 1.5), rng.uniform(-0.6, 0.6), rng.uniform(2.5, 8)])).astype(np.float32)
+        for _ in range(16)]
+    K_s = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    t0 = time.perf_counter()
+    smooth_c = render_meshes(img, smooth, [ell_f] * 16, K_s)
+    t_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smooth_p = render_meshes(img, smooth[:2], [ell_f] * 2, K_s, plain=True)
+    t_sp = time.perf_counter() - t0
+    same_s = np.array_equal(render_meshes(img, smooth[:2], [ell_f] * 2, K_s), smooth_p)
+    ok = (st == 200 and headers.get("Content-Type") == "image/png" and png is not None
+          and png.shape == img.shape and int(headers.get("X-Person-Count", -1)) == count
+          and count == len(persons) and np.array_equal(png, full) and len(sub) > 0
+          and np.array_equal(compiled, plain) and same_s and (smooth_c != img).any())
+    cpu = host_cpu()
+    log(18, f"(d) POST /infer?render=1 {w}x{h}: status {st}, {headers.get('Content-Type')}, "
+            f"PNG {None if png is None else png.shape}, X-Person-Count "
+            f"{headers.get('X-Person-Count')} (JSON count {count}), {t_req * 1e3:.1f} ms; the "
+            f"PNG equals the compiled render of the request's {len(persons)} meshes: "
+            f"{png is not None and np.array_equal(png, full)}; compiled against plain on "
+            f"{len(sub)} meshes: {'bitwise equal' if np.array_equal(compiled, plain) else 'DIFFER'}"
+            f" {'ok' if ok else 'FAIL'}")
+    log(18, f"(d) rasterizer at {w}x{h}, {faces.shape[0]} faces per mesh: compiled "
+            f"{t_all * 1e3:.1f} ms for {len(meshes)} meshes, {t_c * 1e3:.1f} ms for "
+            f"{len(sub)}; numpy _rasterize {t_p * 1e3:.1f} ms for {len(sub)} [host: {cpu}]")
+    log(18, f"(d) rasterizer at {w}x{h}, 16 smooth meshes of {ell_v.shape[0]} vertices and "
+            f"{ell_f.shape[0]} faces: compiled {t_s * 1e3:.1f} ms; numpy _rasterize "
+            f"{t_sp * 1e3:.1f} ms for 2, {'bitwise equal' if same_s else 'DIFFER'} [host: {cpu}]"
+            f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(d) ?render=1 or the rasterizer failed")
+    return {"raster_ms": (t_all * 1e3, len(meshes), t_c * 1e3, t_p * 1e3, len(sub)),
+            "smooth_ms": (t_s * 1e3, t_sp * 1e3), "cpu": cpu}
+
+
+def serve_overload(model, payloads, card):
+    """(e) a burst of 32 past max_queue 4 sheds with 429 + Retry-After; a
+    1 ms deadline under load fails with 503; never a 500."""
+    burst = [payloads[0]] * 32
+    with Serving(model, max_batch=8, max_delay_ms=5.0, max_queue=4) as s:
+        res, _ = run_clients(s.port, burst, 32)
+        shed = s.batcher.stats.snapshot()["shed"]
+    st = [r[0] for r in res]
+    retry = [r[1].get("Retry-After") for r in res if r[0] == 429]
+    ok_q = st.count(429) >= 1 and 500 not in st and all(retry) and set(st) <= {200, 429}
+    log(18, f"(e) max_queue 4, a burst of 32: {st.count(200)} x 200, {st.count(429)} x 429 "
+            f"(Retry-After {sorted(set(retry))}), {st.count(500)} x 500; /stats shed {shed} "
+            f"{'ok' if ok_q else 'FAIL'}")
+    with Serving(model, max_batch=8, max_delay_ms=5.0, deadline_s=0.001, json_only=True) as s:
+        res, _ = run_clients(s.port, [payloads[0]] * 32, 16)
+        shed = s.batcher.stats.snapshot()["shed"]
+    st = [r[0] for r in res]
+    ok_d = st.count(503) >= 1 and 500 not in st and set(st) <= {200, 503}
+    log(18, f"(e) deadline_s 0.001, 32 requests from 16 clients: {st.count(200)} x 200, "
+            f"{st.count(503)} x 503, {st.count(500)} x 500; /stats shed {shed} "
+            f"{'ok' if ok_d else 'FAIL'}")
+    if not (ok_q and ok_d):
+        raise AssertionError("(e) overload did not shed with 429 and 503 alone")
+
+
+def serve_saturation(model, payloads, card):
+    """(f) 256 requests from 16 clients, per server: images/s, latency,
+    batching, the worker's phases, and the card's busy share."""
+    from multihmr_tpu_torch.tools.train_smoke import busy_us
+
+    work = [payloads[i % len(payloads)] for i in range(256)]
+    # one batch-8 forward alone, no HTTP threads: its host wall (enqueue
+    # only, and to the end on the card) and the card's busy time
+    S = model.cfg.img_size
+    g = torch.Generator("cuda").manual_seed(18)
+    x = torch.randn((8, S, S, 3), device="cuda", generator=g)
+    K = torch.tensor([[[600.0, 0, S / 2], [0, 600.0, S / 2], [0, 0, 1]]] * 8, device="cuda")
+    with torch.inference_mode():
+        enqueue = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(x, K)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        fwd = wall_ms(lambda: model.forward(x, K))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model.forward(x, K)
+            torch.cuda.synchronize()
+    alone = (float(np.median(enqueue[2:])), fwd, busy_us(prof.events()) / 1e3 / 3)
+    log(18, f"(f) {SERVE} bf16 heads forward at batch 8 alone: enqueue {alone[0]:.2f} ms "
+            f"(host), wall {alone[1]:.2f} ms to the end on the card, device busy {alone[2]:.2f} "
+            f"ms per forward [{card}]")
+    figures = {"alone": alone}
+    for label, kw, sync, profile in (("full", {}, False, False),
+                                     ("json_only", {"json_only": True}, False, False),
+                                     ("full, profiled", {}, False, True),
+                                     ("full, readback synced in batch_fn", {}, True, False)):
+        with Serving(model, max_batch=8, max_delay_ms=5.0, **kw) as s:
+            if sync:
+                batch_fn = s.batcher.batch_fn
+
+                def synced(x, K, batch_fn=batch_fn):
+                    pending = batch_fn(x, K)
+                    pending.readback.wait()
+                    return pending
+
+                s.batcher.batch_fn = synced
+            busy = None
+            if profile:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    res, wall = run_clients(s.port, work, 16)
+                    torch.cuda.synchronize()
+                busy = busy_us(prof.events()) / 1e3 / (wall * 1e3)
+            else:
+                res, wall = run_clients(s.port, work, 16)
+            st = s.batcher.stats
+            lat = np.array([r[3] for r in res]) * 1e3
+            snap = st.snapshot()
+            f = {"img_s": len(work) / wall, "p50": float(np.percentile(lat, 50)),
+                 "p95": float(np.percentile(lat, 95)), "mean_batch": snap["mean_batch_size"],
+                 "dispatch_p50": float(np.percentile(st.dispatch_ms, 50)),
+                 "extract_p50": float(np.percentile(st.extract_ms, 50)),
+                 "server_p50": float(np.percentile(st.latencies_ms, 50)),
+                 "server_p95": float(np.percentile(st.latencies_ms, 95)), "busy": busy,
+                 "ok": all(r[0] == 200 for r in res)}
+        figures[label] = f
+        log(18, f"(f) {SERVE} bf16 heads, {label}: 256 requests from 16 clients in "
+                f"{wall:.3f} s = {f['img_s']:.2f} images/s; client latency p50 {f['p50']:.1f} "
+                f"/ p95 {f['p95']:.1f} ms (server p50 {f['server_p50']:.1f} / p95 "
+                f"{f['server_p95']:.1f} ms); mean batch size {f['mean_batch']}, histogram "
+                f"{snap['batch_size_hist']}; dispatch_ms p50 {f['dispatch_p50']:.2f}, "
+                f"extract_ms p50 {f['extract_p50']:.2f}"
+                + ("" if busy is None else f"; card busy {100 * busy:.1f} % of the window")
+                + f" [{card}] {'ok' if f['ok'] else 'FAIL'}")
+    if not all(f["ok"] for k, f in figures.items() if k != "alone"):
+        raise AssertionError("(f) a request failed at saturation")
+    return figures
+
+
+def serve_app(card, tmp):
+    """(g) cli/app.build_infer on 672_S: overlay and .glb, then the cache."""
+    from multihmr_tpu_torch.cli import app
+
+    cache = os.path.join(tmp, "app_cache")
+    infer, _ = app.build_infer("multiHMR_672_S", None, cache_dir=cache)
+    img = synthetic_image(7, 480, 640)
+    t0 = time.perf_counter()
+    overlay, glb, count = infer(img)
+    t1 = time.perf_counter()
+    overlay2, glb2, count2 = infer(img)
+    t2 = time.perf_counter()
+    ok = (overlay.shape == img.shape and glb[:4] == b"glTF" and glb2 == glb and count2 == count
+          and np.array_equal(overlay2, overlay) and len(os.listdir(cache)) == 2)
+    log(18, f"(g) cli/app build_infer multiHMR_672_S, 640x480: {count} persons, overlay "
+            f"{overlay.shape}, .glb {len(glb)} bytes, {1e3 * (t1 - t0):.1f} ms; the same image "
+            f"again from the cache in {1e3 * (t2 - t1):.1f} ms [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(g) the app's overlay, .glb or cache failed")
+
+
+def serve_demo(demo, cuda_lib, names, card, tmp):
+    """(h) cli/demo.py with the overlays on 2 images at 896_L: every file the
+    JAX demo writes, and 24 K1 + 48 K2 per image."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    src, out = os.path.join(tmp, "overlay_in"), os.path.join(tmp, "overlay_out")
+    os.makedirs(src)
+    for i, (h, w) in enumerate([(480, 640), (640, 480)]):
+        Image.fromarray(synthetic_image(60 + i, h, w)).save(os.path.join(src, f"im{i}.jpg"))
+    buf = io.StringIO()
+    cuda_lib.reset_launches()  # the demo's run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        demo.main(["--img_folder", src, "--out_folder", out, "--model_name", "multiHMR_896_L",
+                   "--extra_views", "1", "--distance", "1", "--save_mesh", "1"])
+    secs = time.perf_counter() - t0
+    launches = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(18, "  " + line)
+    ok, missing = launches == (48, 96, 0), []
+    for i, (h, w) in enumerate([(480, 640), (640, 480)]):
+        save_fn = os.path.join(out, f"im{i}.jpg_multiHMR_896_L.png")
+        n = len(json.load(open(save_fn[:-4] + ".json"))["persons"])
+        want = [save_fn, save_fn + ".npy", save_fn + ".glb"] + [
+            save_fn + f".person{j}.obj" for j in range(n)]
+        missing += [p for p in want if not os.path.isfile(p)]
+        shape = np.asarray(Image.open(save_fn)).shape if os.path.isfile(save_fn) else None
+        ok = ok and n > 0 and shape == (h, 3 * w, 3)
+    ok = ok and not missing
+    log(18, f"(h) cli/demo multiHMR_896_L --extra_views 1 --distance 1 --save_mesh 1, 2 "
+            f"images: {secs:.1f} s with the build; launches K1/K2/K5 {launches} (want (48, 96, "
+            f"0)); missing files {missing} [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(h) the demo's overlays failed")
+
+
+def run_serving(build_model, demo, cast_backbone_bf16, cuda_lib, attention, norm, card, tmp):
+    """Phase 18: serving multiHMR_672_B at batch 8, the renderer, the app and
+    the demo's overlays. Every part runs; the phase fails at its end if any
+    did."""
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    failed, figures = [], {}
+
+    def part(tag, fn, *args):
+        try:
+            return fn(*args)
+        except Exception:
+            failed.append(tag)
+            log(18, f"({tag}) FAIL\n" + traceback.format_exc())
+            return None
+
+    t0 = time.perf_counter()
+    part("a", serve_cli, card)
+    model = build_model(SERVE, device="cuda", seed=0)
+    cast_backbone_bf16(model.net)
+    ring = build_model(SERVE, device="cuda", seed=0, tp_mode="ring")
+    cast_backbone_bf16(ring.net)
+    counted = part("b", serve_counted, model, ring, cuda_lib, names, card)
+    del ring
+    payloads = counted[0] if counted else [jpeg_bytes(synthetic_image(100 + i, *SERVE_SIZES[i % 3]))
+                                           for i in range(48)]
+    figures["counted"] = counted[1] if counted else None
+    figures["errs"] = part("c", check_serving_shapes, attention, norm)
+    figures["render"] = part("d", serve_render, model, payloads[0], card)
+    part("e", serve_overload, model, payloads, card)
+    figures["sat"] = part("f", serve_saturation, model, payloads, card)
+    del model
+    torch.cuda.empty_cache()
+    part("g", serve_app, card, tmp)
+    torch.cuda.empty_cache()
+    part("h", serve_demo, demo, cuda_lib, names, card, tmp)
+    log(18, f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 18 parts failed: {failed}")
+    return figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2016,10 +2614,13 @@ def main() -> int:
             phase(16, run_3dpw_cli, build_model, cuda_lib, attention, norm, card, ref[0])
         anny = phase(17, run_anny, build_model, demo, cast_backbone_bf16, cuda_lib, attention,
                      norm, card, tmp)
+        torch.cuda.empty_cache()
+        serving = phase(18, run_serving, build_model, demo, cast_backbone_bf16, cuda_lib,
+                        attention, norm, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref, anny):
+                          cli_launches, ref, anny, serving):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
@@ -2040,6 +2641,15 @@ def main() -> int:
                f"model: " + ", ".join(f"{tp} {anny[tp][0]:.2f} / {anny[tp][1]:.2f} / "
                                       f"{anny[tp][2]:.2f} ms" for tp in ("heads", "ring"))
                + f"; FK {anny['fk'][0]} launches per call [{card}]")
+
+    for label, f in serving["sat"].items():
+        if label == "alone":
+            continue
+        log("end", f"{SERVE} bf16 serving, batch 8, {label}: {f['img_s']:.2f} images/s, client "
+                   f"latency p50 {f['p50']:.1f} / p95 {f['p95']:.1f} ms, mean batch "
+                   f"{f['mean_batch']}" + ("" if f["busy"] is None else
+                                           f", card busy {100 * f['busy']:.1f} %")
+                   + f" [{card}]")
 
     def entry(name, source, replaces, err, times):
         ms, plain_ms, library_ms, b_ms, b_by = times

@@ -1,17 +1,33 @@
-"""Batch-inference CLI (``multihmr_tpu/cli/demo.py``).
+"""Batch-inference CLI (``multihmr_tpu/cli/demo.py``), the analogue of
+reference demo.py:244-384.
 
 Usage:
     python -m multihmr_tpu_torch.cli.demo --img_folder imgs --out_folder out \
         --model_name multiHMR_896_L [--ckpt multiHMR_896_L.pt] [--device cuda] \
-        [--det_thresh 0.3] [--nms_kernel_size 3] [--fov 60] [--save_mesh 1]
+        [--det_thresh 0.3] [--nms_kernel_size 3] [--fov 60] [--save_mesh 1] \
+        [--extra_views 1] [--distance 1] [--unique_color 1] \
+        [--save_rotating_video 1] [--alpha 0.75]
 
-For each image it writes ``<name>_<model>.json`` (the detected persons) and,
-with ``--save_mesh``, ``<name>_<model>.npy`` (their vertices ``[P, V, 3]``).
+For each image it writes what the JAX demo writes: ``<name>_<model>.png``
+(the image beside its mesh overlay, ``--distance`` printing each person's
+distance, ``--extra_views`` adding a 45-degree side view), a rotating
+video with ``--save_rotating_video`` (named as the JAX demo names it: that
+PNG's path with every ".png" replaced by "_rotating.mp4"; PNG frames
+without imageio or cv2), and with ``--save_mesh`` the ``.glb`` scene and a
+``.obj`` per person and the persons' vertices ``[P, V, 3]``
+(``<name>_<model>.png.glb``, ``.png.person<j>.obj``, ``.png.npy``).
+Besides, ``<name>_<model>.json`` (the detected persons).
 ``--ckpt`` converts a reference ``multiHMR_*.pt`` on the fly; without it the
-weights are seeded random ones (for pipeline checks only). The overlay
-rendering flags of the JAX demo are not ported yet and are refused.
-:func:`run_image` is the per-image body; it takes a decoded uint8 array, so
-other drivers run exactly the demo's path.
+weights are seeded random ones (for pipeline checks only).
+
+The loop is the JAX demo's one-stage pipeline: image *i+1*'s forward is
+enqueued on the card before image *i*'s host work (readback, rendering,
+files). :func:`start_image` enqueues one image's forward and then the
+copies of its persons into pinned host memory, with one CUDA event after
+them; :func:`finish_image` waits on that event alone (not on the stream,
+where image *i+1*'s forward now runs) and writes the files.
+:func:`run_image` is both for one image; they take a decoded uint8 array,
+so other drivers run exactly the demo's path.
 
 An Anny-family name (``multiHMR_672_L_anny``) runs ``MultiHMRAnny`` with the
 demo's FOV-``--fov`` K, so its persons' ``K`` is that K (``K_regressed`` and
@@ -27,15 +43,10 @@ import argparse
 import json
 import os
 import time
-
 import numpy as np
 import torch
 
 from multihmr_tpu_torch.io.preprocessing import preprocess_array
-
-# the JAX demo's overlay flags, refused until the renderer is ported
-_RENDER_FLAGS = ("extra_views", "distance", "unique_color", "save_rotating_video")
-
 
 @torch.inference_mode()
 def predict(model, img_rgb: np.ndarray, fov: float = 60.0, det_thresh: float = 0.3,
@@ -55,20 +66,74 @@ def persons_to_json(persons: list) -> list:
             for p in persons]
 
 
-def run_image(model, img_rgb: np.ndarray, name: str, out_folder: str, tag: str,
-              fov: float = 60.0, det_thresh: float = 0.3, nms_kernel_size: int = 3,
-              save_mesh: bool = False):
-    """Predict one image and write its outputs; returns (outputs, persons)."""
+def start_image(model, img_rgb: np.ndarray, fov: float = 60.0, det_thresh: float = 0.3,
+                nms_kernel_size: int = 3):
+    """Enqueue one image's forward and its persons' device→host copies;
+    returns (outputs, pending persons) without waiting for the card."""
     out = predict(model, img_rgb, fov=fov, det_thresh=det_thresh,
                   nms_kernel_size=nms_kernel_size)
-    persons = model.extract_persons(out)[0]
+    return out, model.start_persons(out)
+
+
+def finish_image(model, pending, img_rgb: np.ndarray, name: str, out_folder: str, tag: str,
+                 fov: float = 60.0, save_mesh: bool = False, overlay=None) -> list:
+    """Wait for one image's persons and write its files; returns the persons.
+    ``overlay``: None writes the JSON (and with ``save_mesh`` the ``.npy``)
+    alone; else the demo's flags (``extra_views``, ``distance``,
+    ``unique_color``, ``save_rotating_video``, ``alpha``), and the JAX demo's
+    overlay PNG, views, video, ``.glb`` and ``.obj`` files too."""
+    persons = pending.persons()[0]
     stem = os.path.join(out_folder, f"{name}_{tag}")
     with open(stem + ".json", "w") as f:
         json.dump({"image": name, "persons": persons_to_json(persons)}, f)
     if save_mesh:
         V = model.body_model.num_vertices
         meshes = np.stack([p["v3d"] for p in persons]) if persons else np.zeros((0, V, 3))
-        np.save(stem + ".npy", meshes.astype(np.float32))
+        np.save(stem + ".png.npy", meshes.astype(np.float32))  # the JAX demo's name
+    if overlay is not None:
+        _write_overlays(model, persons, img_rgb, stem + ".png", fov, save_mesh, overlay)
+    return persons
+
+
+def _write_overlays(model, persons, img_rgb, save_fn, fov, save_mesh, opts):
+    """The JAX demo's per-image files (multihmr_tpu/cli/demo.py:143-183)."""
+    from PIL import Image
+
+    from multihmr_tpu_torch import render
+    from multihmr_tpu_torch.io.preprocessing import get_camera_parameters, rescale_K_to_original
+
+    faces = model.body_model.faces.cpu().numpy()
+    h, w = img_rgb.shape[:2]
+    K_full = rescale_K_to_original(get_camera_parameters(model.cfg.img_size, fov=fov), w, h,
+                                   model.cfg.img_size)
+    arr, colors = render.overlay_human_meshes(
+        persons, faces, K_full, img_rgb, unique_color=bool(opts.unique_color), alpha=opts.alpha)
+    if opts.distance:
+        arr = render.print_distance_on_image(arr, persons, colors)
+    panels = [np.asarray(img_rgb), arr]
+    l_mesh = [np.asarray(p["v3d"]) for p in persons]
+    if opts.extra_views and persons:
+        panels.append(render.render_view_from_angle(
+            l_mesh, [faces] * len(l_mesh), K_full[0], arr.shape[1], arr.shape[0], angle_deg=45))
+    Image.fromarray(np.concatenate(panels, 1).astype(np.uint8)).save(save_fn)
+    if opts.save_rotating_video and persons:
+        render.create_rotating_video(
+            l_mesh, [faces] * len(l_mesh), K_full[0], arr.shape[1], arr.shape[0],
+            fn=save_fn.replace(".png", "_rotating.mp4"), n_frames=20)
+    if save_mesh:
+        render.create_glb_scene(l_mesh, [faces] * len(l_mesh), save_fn + ".glb")
+        for j, m in enumerate(l_mesh):
+            render.export_obj(save_fn + f".person{j}.obj", m, faces)
+
+
+def run_image(model, img_rgb: np.ndarray, name: str, out_folder: str, tag: str,
+              fov: float = 60.0, det_thresh: float = 0.3, nms_kernel_size: int = 3,
+              save_mesh: bool = False, overlay=None):
+    """Predict one image and write its outputs; returns (outputs, persons)."""
+    out, pending = start_image(model, img_rgb, fov=fov, det_thresh=det_thresh,
+                               nms_kernel_size=nms_kernel_size)
+    persons = finish_image(model, pending, img_rgb, name, out_folder, tag, fov=fov,
+                           save_mesh=save_mesh, overlay=overlay)
     return out, persons
 
 
@@ -89,9 +154,6 @@ def main(argv=None):
     parser.add_argument("--save_rotating_video", type=int, default=0)
     parser.add_argument("--alpha", type=float, default=0.75)
     args = parser.parse_args(argv)
-    for flag in _RENDER_FLAGS:
-        if getattr(args, flag):
-            parser.error(f"--{flag} needs the overlay renderer, which is not ported yet")
 
     from PIL import Image
 
@@ -110,23 +172,42 @@ def main(argv=None):
     os.makedirs(args.out_folder, exist_ok=True)
     names = sorted(f for f in os.listdir(args.img_folder)
                    if f.lower().endswith((".jpg", ".jpeg", ".png")))
-    durations = []
-    wall_t0 = time.perf_counter()
-    for name in names:
-        img = np.asarray(Image.open(os.path.join(args.img_folder, name)).convert("RGB"))
-        t0 = time.perf_counter()
-        _, persons = run_image(
-            model, img, name, args.out_folder, args.model_name, fov=args.fov,
-            det_thresh=args.det_thresh, nms_kernel_size=args.nms_kernel_size,
-            save_mesh=bool(args.save_mesh))
-        durations.append(time.perf_counter() - t0)  # ends in a host readback
-        print(f"{name}: {len(persons)} persons, {1000 * durations[-1]:.1f} ms")
+    # one stage in flight: image i+1's forward is enqueued before image i's
+    # host work. `waits` is the residual stall on image i's event (card time
+    # the host work did not hide); `periods` the wall between consecutive
+    # images' ends, the pipeline's time per image
+    waits, periods = [], []
+    wall_t0 = t_prev = time.perf_counter()
+    pending = None  # (name, image, pending persons)
+    for name in names + [None]:
+        nxt = None
+        if name is not None:
+            img = np.asarray(Image.open(os.path.join(args.img_folder, name)).convert("RGB"))
+            _, persons_next = start_image(model, img, fov=args.fov, det_thresh=args.det_thresh,
+                                          nms_kernel_size=args.nms_kernel_size)
+            nxt = (name, img, persons_next)
+        if pending is not None:
+            done_name, done_img, done_persons = pending
+            t0 = time.perf_counter()
+            done_persons.readback.wait()
+            waits.append(time.perf_counter() - t0)
+            persons = finish_image(model, done_persons, done_img, done_name, args.out_folder,
+                                   args.model_name, fov=args.fov,
+                                   save_mesh=bool(args.save_mesh), overlay=args)
+            t_now = time.perf_counter()
+            periods.append(t_now - t_prev)
+            t_prev = t_now
+            print(f"{done_name}: {len(persons)} persons, {1000 * periods[-1]:.1f} ms, "
+                  f"{1000 * waits[-1]:.1f} ms wait")
+        pending = nxt
     wall_s = time.perf_counter() - wall_t0
     print(json.dumps({
         "n_images": len(names),
         "device": str(model.body_model.v_template.device),
-        "p50_image_ms": float(1000 * np.median(durations)) if durations else None,
+        "p50_image_ms": float(1000 * np.median(periods)) if periods else None,
+        "p50_wait_ms": float(1000 * np.median(waits)) if waits else None,
         "wall_s": round(wall_s, 3),
+        "img_per_s": round(len(names) / wall_s, 2) if names else None,
     }))
 
 

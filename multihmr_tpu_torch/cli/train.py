@@ -21,9 +21,9 @@ in the reference's layout (``smplx/smplx2smpl.pkl``, ``smpl/...``) or flat:
 SMPL, with a warning).
 
 Flags of features not ported yet raise with the ROADMAP item that ports them:
-more than one device, ``--model_parallel`` or ``--fsdp`` (M11) and
-``--visu_to_save`` (``render/``). A ``--pretrained`` flax ``.msgpack`` (the
-JAX package's own format) does not load here.
+more than one device, ``--model_parallel`` or ``--fsdp`` (M11). A
+``--pretrained`` flax ``.msgpack`` (the JAX package's own format) does not
+load here.
 """
 
 from __future__ import annotations
@@ -125,7 +125,8 @@ def build_argparser():
     p.add_argument("--nms_kernel_size", type=int, default=3)
     p.add_argument(
         "--visu_to_save", type=int, default=0,
-        help="eval triptychs for the first N images (not ported yet: needs render/)",
+        help="eval triptychs [input | prediction | GT] for the first N images of each "
+        "valset, under <logdir>/<name>/visu_<valset>",
     )
     p.add_argument(
         "--log_freq", type=int, default=100,
@@ -185,8 +186,6 @@ def _unported(args, n_dev: int) -> str | None:
     if n_dev > 1 or args.model_parallel > 1 or args.fsdp:
         return ("multi-device training (--n_devices > 1, --model_parallel > 1, --fsdp 1) "
                 "is not ported yet: ROADMAP M11")
-    if args.visu_to_save > 0:
-        return "--visu_to_save is not ported yet: it needs render/ (ROADMAP M5)"
     if args.pretrained and args.pretrained.endswith(".msgpack"):
         return (f"--pretrained {args.pretrained}: a flax .msgpack is the JAX package's "
                 "native format and does not load here; give this port's own ckpt_*.pt or "
@@ -355,9 +354,12 @@ def main(argv=None):
                 # GT meshes from the stored SMPL-X params through the same
                 # 11-beta neutral layer as training (reference train.py:41-43)
                 gt_fwd = make_smplx_gt_forward(gt_bm, num_betas=11)
-            res = evaluate_dataset(model, ds, det_thresh=args.det_thresh,
-                                   nms_kernel_size=args.nms_kernel_size, gt_forward=gt_fwd,
-                                   log_every=args.log_freq, **eval_kw)
+            res = evaluate_dataset(
+                model, ds, det_thresh=args.det_thresh, nms_kernel_size=args.nms_kernel_size,
+                gt_forward=gt_fwd, log_every=args.log_freq, visu_to_save=args.visu_to_save,
+                visu_dir=os.path.join(args.logdir, args.name, f"visu_{vname}"),
+                faces=model.body_model.faces.cpu().numpy() if args.visu_to_save > 0 else None,
+                **eval_kw)
             # reference tag shape: {name}-{split}-{subsample}/{metric}
             # (train.py:477-479); scalars only — 'timings' is a nested dict
             logger.scalars({k: v for k, v in res.items() if isinstance(v, (int, float))},

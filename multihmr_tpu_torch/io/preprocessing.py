@@ -99,17 +99,32 @@ def get_camera_parameters(img_size: int, fov: float = 60) -> np.ndarray:
 class PreprocessedImage(NamedTuple):
     x: np.ndarray  # [S, S, 3] normalized float32
     K: np.ndarray  # [3, 3]
+    original: object  # the unresized image: PIL (its .size is (W, H)), or the array without PIL
     resized: np.ndarray  # [S, S, 3] uint8 after contain + pad
 
 
 def preprocess_array(img_rgb: np.ndarray, img_size: int, fov: float = 60.0) -> PreprocessedImage:
-    """uint8 HWC RGB → normalized square image and its K."""
+    """uint8 HWC RGB → normalized square image, its K, and the original for
+    rendering at full size (:func:`rescale_K_to_original`)."""
     img_rgb = np.asarray(img_rgb)
     if _HAS_PIL:
-        pil = Image.fromarray(img_rgb).convert("RGB")
-        resized = np.asarray(ImageOps.pad(ImageOps.contain(pil, (img_size, img_size)),
+        original = Image.fromarray(img_rgb).convert("RGB")
+        resized = np.asarray(ImageOps.pad(ImageOps.contain(original, (img_size, img_size)),
                                           size=(img_size, img_size)))
     else:
+        original = img_rgb
         resized = resize_pad_numpy(img_rgb, img_size)
     return PreprocessedImage(normalize_nhwc(resized),
-                             get_camera_parameters(img_size, fov=fov)[0], resized)
+                             get_camera_parameters(img_size, fov=fov)[0], original, resized)
+
+
+def rescale_K_to_original(K: np.ndarray, orig_w: int, orig_h: int, img_size: int):
+    """K ``[1, 3, 3]`` of the padded square → K for rendering at the
+    original resolution (reference demo.py:341-344)."""
+    K = K.copy()
+    ratio = max(orig_w, orig_h) / img_size
+    K[0, 0, 2] = orig_w / 2.0
+    K[0, 1, 2] = orig_h / 2.0
+    K[0, 0, 0] *= ratio
+    K[0, 1, 1] *= ratio
+    return K

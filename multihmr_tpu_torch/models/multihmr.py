@@ -193,29 +193,76 @@ class MultiHMR:
         """Padded ``[B, K]`` outputs → per-image lists of person dicts of numpy
         arrays. ``fields`` restricts which keys are read back to the host
         (default: all)."""
-        valid = out["det"].valid.cpu().numpy()
-        B = valid.shape[0]
-        full = valid.sum(-1) == valid.shape[1]
-        if full.any():
-            warnings.warn(
-                f"{int(full.sum())} image(s) saturated the detection capacity "
-                f"K={valid.shape[1]}; people beyond it are dropped.", stacklevel=2)
-        keys = [
-            ("scores", "scores_det"), ("loc", "loc"), ("transl", "transl"),
-            ("transl_pelvis", "transl_pelvis"), ("rotvec", "rotvec"),
-            ("expression", "expression"), ("shape", "shape"),
-            ("v3d", "v3d"), ("j3d", "j3d"), ("j2d", "j2d"),
-        ]
-        if fields is not None:
-            keys = [(name, src) for name, src in keys if name in fields]
-        # valid slots are a prefix of K: read back only [:, :kmax]
-        kmax = int(valid.sum(-1).max())
-        if kmax == 0:
-            return [[] for _ in range(B)]
-        host = {name: out[src][:, :kmax].cpu().numpy() for name, src in keys}
-        return [
-            [{name: host[name][b, k] for name, _ in keys}
-             for k in range(kmax) if valid[b, k] > 0]
-            for b in range(B)
-        ]
+        return self.start_persons(out, fields).persons()
 
+    def start_persons(self, out: dict, fields: Optional[list] = None) -> "PendingPersons":
+        """Enqueue the device→host copies of :meth:`extract_persons` (every
+        slot of each field, so nothing waits for the count of valid ones) and
+        return at once; ``.persons()`` waits for them and builds the lists."""
+        keys = [(name, src) for name, src in PERSON_FIELDS
+                if fields is None or name in fields]
+        rb = Readback({"valid": out["det"].valid, **{name: out[src] for name, src in keys}})
+        return PendingPersons(rb, persons_from_host)
+
+
+# (person key, output key) of extract_persons, in its order
+PERSON_FIELDS = (
+    ("scores", "scores_det"), ("loc", "loc"), ("transl", "transl"),
+    ("transl_pelvis", "transl_pelvis"), ("rotvec", "rotvec"),
+    ("expression", "expression"), ("shape", "shape"),
+    ("v3d", "v3d"), ("j3d", "j3d"), ("j2d", "j2d"),
+)
+
+
+def persons_from_host(host: dict) -> list:
+    """Host arrays ``{"valid": [B, K], field: [B, K, ...]}`` → per-image
+    lists of person dicts (the valid slots, a prefix of K)."""
+    valid = host.pop("valid")
+    B, K = valid.shape
+    full = valid.sum(-1) == K
+    if full.any():
+        warnings.warn(
+            f"{int(full.sum())} image(s) saturated the detection capacity "
+            f"K={K}; people beyond it are dropped.", stacklevel=3)
+    return [[{name: a[b, k] for name, a in host.items()} for k in range(K) if valid[b, k] > 0]
+            for b in range(B)]
+
+
+class Readback:
+    """Device→host copies of a dict of tensors, in flight.
+
+    On a CUDA device each tensor is copied into its own pinned host buffer
+    with ``non_blocking=True`` on the current stream, and one event is
+    recorded after the last copy: the host goes on (enqueueing the next
+    forward, say) and :meth:`wait` blocks on that event alone, not on the
+    stream, so later work on the stream does not delay it. On the CPU the
+    copies are done at once."""
+
+    def __init__(self, tensors: dict):
+        first = next(iter(tensors.values()))
+        cuda = first.device.type == "cuda"
+        self.host = {}
+        for name, t in tensors.items():
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+            h.copy_(t, non_blocking=cuda)
+            self.host[name] = h
+        self.event = None
+        if cuda:
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(first.device))
+
+    def wait(self) -> dict:
+        """Block until the copies landed; the host arrays, as numpy."""
+        if self.event is not None:
+            self.event.synchronize()
+        return {name: h.numpy() for name, h in self.host.items()}
+
+
+class PendingPersons:
+    """A forward's persons on their way to the host (``start_persons``)."""
+
+    def __init__(self, readback: Readback, build):
+        self.readback, self._build = readback, build
+
+    def persons(self) -> list:
+        return self._build(self.readback.wait())

@@ -12,8 +12,9 @@ that cannot take the predictions' vertex count (SMPL-X predictions without
 JAX package fails inside an einsum at the first match; and the matcher sees
 the predictions' joints truncated to the GT's joint count, as in the JAX
 package and the reference, so on 3DPW SMPL-X joints 22-23 (jaw, left eye)
-stand against SMPL's hands. The eval triptychs (``visu_to_save``) wait for
-``render/``.
+stand against SMPL's hands. ``visu_to_save`` saves [input | prediction |
+GT] triptychs of the first images, rendered on the host
+(``render/render.py::render_meshes``).
 """
 
 from __future__ import annotations
@@ -112,6 +113,31 @@ def _project_np(j3d: np.ndarray, K: np.ndarray) -> np.ndarray:
     return np.einsum("ij,...kj->...ki", np.asarray(K, np.float64), y)[..., :2]
 
 
+def _save_eval_visu(visu_dir, idx, x, annot, persons, gt, faces):
+    """Save an [input | prediction | GT] triptych for eval debugging."""
+    import os
+
+    from multihmr_tpu_torch.ops.image import IMG_NORM_MEAN, IMG_NORM_STD
+    from multihmr_tpu_torch.render import render_meshes
+
+    os.makedirs(visu_dir, exist_ok=True)
+    img = np.clip((np.asarray(x) * IMG_NORM_STD + IMG_NORM_MEAN) * 255, 0, 255).astype(
+        np.uint8
+    )
+    K = np.asarray(annot["K"])
+    pred_arr = render_meshes(
+        img, [np.asarray(p["v3d"]) for p in persons], [faces] * len(persons), K
+    )
+    gt_arr = render_meshes(img, list(gt["v3d"]), [faces] * len(gt["v3d"]), K)
+    strip = np.concatenate([img, pred_arr, gt_arr], axis=1)
+    try:
+        from PIL import Image
+
+        Image.fromarray(strip).save(os.path.join(visu_dir, f"eval_{idx:04d}.png"))
+    except ImportError:  # pragma: no cover
+        np.save(os.path.join(visu_dir, f"eval_{idx:04d}.npy"), strip)
+
+
 def evaluate_dataset(
     model,
     dataset,
@@ -123,6 +149,9 @@ def evaluate_dataset(
     max_images: Optional[int] = None,
     log_every: int = 50,
     log_fn=print,
+    visu_to_save: int = 0,
+    visu_dir: str = "eval_visu",
+    faces: Optional[np.ndarray] = None,
 ) -> Dict[str, float]:
     """Run eval over a dataset yielding (image NHWC, annot dict) with the
     model's own weights (a :class:`~multihmr_tpu_torch.models.multihmr.MultiHMR`
@@ -134,15 +163,17 @@ def evaluate_dataset(
     natively (GT joints regressed with the model's J_regressor, reference
     train.py:72-74). ``smplx2smpl`` maps the predicted vertices to the GT's
     SMPL topology (3DPW); ``J_regressor_h36m`` adds ``mpjpe`` and
-    ``pa_mpjpe`` over the 14 H36M joints.
+    ``pa_mpjpe`` over the 14 H36M joints. ``visu_to_save`` > 0 with the
+    body model's ``faces`` writes ``visu_dir/eval_<i>.png`` for the first
+    images: [input | prediction | GT] (reference train.py:441-469).
 
-    With a ``gt_forward`` (per-image host work to hide) the loop enqueues
+    With a ``gt_forward`` or eval visualization (per-image host work to
+    hide) the loop enqueues
     image *i+1*'s forward on the card before image *i*'s result is read
     back, so the card computes while the host matches and scores, as the JAX
     package does; without one it is the reference's serial loop.
     ``results['timings']`` attributes the wall clock: load / dispatch / wait
-    / readback / gt / match_metrics / visu (always 0 here) sum to about the
-    wall."""
+    / readback / gt / match_metrics / visu sum to about the wall."""
     device = next(model.net.parameters()).device
     n_pred_verts = model.body_model.num_vertices if smplx2smpl is None else smplx2smpl.shape[0]
     if J_regressor_h36m is not None and J_regressor_h36m.shape[1] != n_pred_verts:
@@ -167,11 +198,11 @@ def evaluate_dataset(
                 det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
         timings["load"] += t1 - t0
         timings["dispatch"] += time.perf_counter() - t1
-        return i, annot, out
+        return i, x, annot, out
 
     def process(item):
         nonlocal count, miss, fp
-        i, annot, out = item
+        i, x, annot, out = item
         t0 = time.perf_counter()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -194,6 +225,13 @@ def evaluate_dataset(
             raise ValueError("dataset provides no GT meshes and no gt_forward")
         t3 = time.perf_counter()
         timings["gt"] += t3 - t2
+
+        # eval-time visualization (reference train.py:441-469: saves
+        # image/pred/GT triptychs for the first --visu_to_save images)
+        if i < visu_to_save and faces is not None:
+            _save_eval_visu(visu_dir, i, x, annot, persons, gt, faces)
+            timings["visu"] += time.perf_counter() - t3
+            t3 = time.perf_counter()
 
         n_gt = gt["v3d"].shape[0]
         count += n_gt
@@ -238,7 +276,7 @@ def evaluate_dataset(
                    f"pa_pve={meters['pa_pve'].avg:.1f}")
 
     t_start = time.perf_counter()
-    if gt_forward is not None:
+    if gt_forward is not None or visu_to_save > 0:
         in_flight = None
         for i in range(n):
             nxt = dispatch(i)  # the card starts image i ...

@@ -183,7 +183,7 @@ def test_demo_main_anny(tiny_factory, tmp_path):
     demo.main(["--img_folder", src, "--out_folder", out, "--model_name", ANNY,
                "--device", "cpu", "--det_thresh", "0.0", "--save_mesh", "1"])
     rec = json.loads(open(os.path.join(out, f"im0.png_{ANNY}.json")).read())
-    meshes = np.load(os.path.join(out, f"im0.png_{ANNY}.npy"))
+    meshes = np.load(os.path.join(out, f"im0.png_{ANNY}.png.npy"))
     assert len(rec["persons"]) == 3 and meshes.shape == (3, 64, 3) and np.isfinite(meshes).all()
     p0 = rec["persons"][0]
     assert {"K", "K_regressed", "fov", "rotmat", "j2d"} <= set(p0) and "v3d" not in p0
@@ -198,7 +198,7 @@ def test_demo_main_anny(tiny_factory, tmp_path):
     torch.save({"model_state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
     demo.main(["--img_folder", src, "--out_folder", out, "--model_name", ANNY, "--ckpt", path,
                "--device", "cpu", "--det_thresh", "0.0", "--save_mesh", "1"])
-    got = np.load(os.path.join(out, f"im0.png_{ANNY}.npy"))
+    got = np.load(os.path.join(out, f"im0.png_{ANNY}.png.npy"))
     jm = JMultiHMRAnny(jcfg, janny.synthetic_anny_model(num_vertices=64))
     params = cast_backbone_bf16(jckpt.convert_torch_checkpoint_anny(path, jcfg))
     fwd = jax.jit(lambda p, x, K: jm.forward(p, x, K, det_thresh=0.0, batch_mode="fused"))

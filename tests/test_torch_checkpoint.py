@@ -286,7 +286,7 @@ def test_demo_ckpt_matches_jax(tmp_path, monkeypatch):
     Image.fromarray(img).save("in/im0.png")
     demo.main(["--img_folder", "in", "--out_folder", "out", "--model_name", "multiHMR_672_S",
                "--ckpt", "x.pt", "--device", "cpu", "--det_thresh", "0.0", "--save_mesh", "1"])
-    got = np.load("out/im0.png_multiHMR_672_S.npy")
+    got = np.load("out/im0.png_multiHMR_672_S.png.npy")
     rec = json.loads(open("out/im0.png_multiHMR_672_S.json").read())
 
     jm, params = jbuild("multiHMR_672_S", cfg=jcfg, checkpoint="x.pt")

@@ -5,7 +5,8 @@ with the epoch-end BEDLAM + EHF evaluation, ``--eval_only 1 --amp 0``,
 ``--resume`` and ``--pretrained`` (this port's checkpoints here; reference
 ``multiHMR_*.pt`` files in tests/test_torch_checkpoint.py, whose faults must
 raise the JAX package's errors), and the flags of features not ported yet,
-which must raise. ``--valset 3dpw`` is in tests/test_torch_threedpw.py."""
+which must raise, and ``--visu_to_save``'s eval triptychs. ``--valset
+3dpw`` is in tests/test_torch_threedpw.py."""
 
 import json
 import os
@@ -80,11 +81,27 @@ def test_train_cli_resume_and_pretrained(trees, capsys):
     assert "eval[ehf-test] epoch 0" in capsys.readouterr().out
 
 
+def test_train_cli_visu_to_save(trees, capsys):
+    """--visu_to_save writes an [input | prediction | GT] triptych per valset
+    for the first images, as the JAX CLI does (tests/test_cli_train.py)."""
+    from PIL import Image
+
+    main(TINY + ["--valset", "bedlam", "ehf", "--val_n", "2", "1", "--eval_only", "1",
+                 "--visu_to_save", "1", "--name", "visu"])
+    out = capsys.readouterr().out
+    assert "eval[bedlam-validation] epoch 0" in out and "eval[ehf-test] epoch 0" in out
+    for vname in ("bedlam", "ehf"):
+        d = os.path.join("logs", "visu", f"visu_{vname}")
+        assert sorted(os.listdir(d)) == ["eval_0000.png"]  # the first image only
+        strip = np.asarray(Image.open(os.path.join(d, "eval_0000.png")))
+        assert strip.shape == (56, 3 * 56, 3)
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--n_devices", "2"], "M11"),
     (["--model_parallel", "2"], "M11"),
     (["--fsdp", "1"], "M11"),
-    (["--visu_to_save", "1"], "render/"),
+    (["--n_devices", "4"], "M11"),
     (["--pretrained", "ckpt.msgpack"], "the JAX package's native format"),
 ])
 def test_unported_flags_raise(trees, flags, match):

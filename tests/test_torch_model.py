@@ -143,7 +143,7 @@ def test_demo_main_writes_persons(tmp_path, monkeypatch):
     rec = json.loads((out / "im0.png_multiHMR_672_S.json").read_text())
     assert rec["image"] == "im0.png" and len(rec["persons"]) == 3
     assert len(rec["persons"][0]["j3d"]) == 127 and "v3d" not in rec["persons"][0]
-    meshes = np.load(out / "im0.png_multiHMR_672_S.npy")
+    meshes = np.load(out / "im0.png_multiHMR_672_S.png.npy")
     assert meshes.shape == (3, 64, 3) and np.isfinite(meshes).all()
     # --ckpt loads a reference checkpoint (tests/test_torch_checkpoint.py);
     # one that is not there raises before any image is read
