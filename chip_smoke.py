@@ -84,7 +84,7 @@ overlay renderer. Phases, one line each:
      pos-embed grid) for 672_S and 896_L, saved with their ``args``: their
      size, ``torch.load`` and convert seconds; 672_S fp32 built from its
      file, card against CPU on both streams (detections equal, outputs
-     within phase 5's 1e-3); 896_L through ``cli/demo.py --ckpt`` on two
+     within phase 5's 1e-3); 896_L through ``cli/demo.py --ckpt`` on three
      images with their overlays (heads: 24 K1 and 48 K2 per image, finite
      meshes, the demo's p50 ms per image) and through the demo's per-image
      body on the ring stream (24 K5, no K1 or K2);
@@ -106,7 +106,7 @@ overlay renderer. Phases, one line each:
      every output within phase 5's 1e-3, 4 K1 + 8 K2 or 4 K5 launches);
      (b) a seeded reference-layout ``multiHMR_672_L_anny.pt`` at full width
      (its size, load and convert seconds) through ``cli/demo.py --ckpt`` on
-     two images per stream (24 K1 + 48 K2 and no K5 per image on heads,
+     three images per stream (24 K1 + 48 K2 and no K5 per image on heads,
      24 K5 and no K1/K2 on ring; finite meshes; persons sorted near to far;
      the demo's p50 ms per image); (c) the file's weights in bf16, ring
      against heads and each against an fp32 control (patch tokens, phase
@@ -126,7 +126,7 @@ overlay renderer. Phases, one line each:
      limits; (d) ``?render=1``: a PNG of the original size whose
      X-Person-Count is the JSON count, equal to the compiled render of the
      request's meshes, and the compiled rasterizer bitwise equal to its
-     numpy version on two of them, with both times; (e) a burst of 32 past
+     numpy version on one of them, with both times; (e) a burst of 32 past
      ``max_queue`` 4 gives 429 with Retry-After, a 1 ms deadline gives 503,
      never a 500; (f) 256 requests from 16 clients against the full and the
      ``json_only`` server: images/s, latency p50/p95, mean batch, the
@@ -1295,10 +1295,8 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
                        norm, card, tmp):
     """Reference-layout multiHMR_672_S and multiHMR_896_L files: 672_S fp32
     card against CPU on both streams; 896_L through the demo's ``--ckpt``
-    (heads) and its per-image body (ring), two images each (the demo
-    renders every image's overlay, seconds for the synthetic body model's
-    random faces). Returns the two paths and the figures for the end
-    lines."""
+    (heads) and its per-image body (ring), three images each. Returns the
+    two paths and the figures for the end lines."""
     import contextlib
     import io
 
@@ -1347,7 +1345,7 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
     os.makedirs(img_dir)
     from PIL import Image
 
-    for i, (h, w) in enumerate([(480, 640), (800, 450)]):
+    for i, (h, w) in enumerate([(480, 640), (800, 450), (896, 896)]):
         Image.fromarray(synthetic_image(i, h, w)).save(os.path.join(img_dir, f"im{i}.png"))
     # heads: the demo CLI itself, each image's launches counted around the
     # call that enqueues its forward (its meshes checked after the run, not
@@ -1380,7 +1378,7 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
     for line in lines:
         log(15, "  " + line)
     summary = json.loads(lines[-1])
-    ok_h = (len(per_image) == 2 and not any("WARNING" in ln for ln in lines)
+    ok_h = (len(per_image) == 3 and not any("WARNING" in ln for ln in lines)
             and all(c == (24, 48, 0) and fin and shp == (1, 16, 10475, 3)
                     for c, fin, shp in per_image))
     log(15, f"896_L bf16 demo --ckpt (heads), {secs:.1f} s with the load: per image "
@@ -1393,7 +1391,7 @@ def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda
     cast_backbone_bf16(model.net)
     ok_r = True
     cuda_lib.reset_launches()  # the ring run starts here
-    for i in range(2):
+    for i in range(3):
         img = np.asarray(Image.open(os.path.join(img_dir, f"im{i}.png")).convert("RGB"))
         before = dict(cuda_lib.LAUNCHES)
         out, persons = demo.run_image(model, img, f"im{i}", os.path.join(tmp, "demo_out"),
@@ -1748,7 +1746,7 @@ def check_anny_e2e(build_model, anny_config, demo, cuda_lib, attention, norm,
 
 def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
     """(b) ``cli/demo.py --model_name multiHMR_672_L_anny --ckpt <path>`` on
-    two images per stream (ring: the factory's ``build_model`` with
+    three images per stream (ring: the factory's ``build_model`` with
     ``tp_mode="ring"``), overlays included: per image launches, finite
     meshes, persons sorted near to far. Returns the demo's p50 ms per image
     per stream."""
@@ -1760,7 +1758,7 @@ def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
 
     img_dir = os.path.join(tmp, "anny_in")
     os.makedirs(img_dir)
-    for i, (h, w) in enumerate([(480, 640), (800, 450)]):
+    for i, (h, w) in enumerate([(480, 640), (800, 450), (672, 672)]):
         Image.fromarray(synthetic_image(10 + i, h, w)).save(os.path.join(img_dir, f"im{i}.png"))
     names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
     slots = factory.anny_config(ANNY).max_people
@@ -1803,7 +1801,7 @@ def run_anny_demo(demo, factory, cuda_lib, attention, norm, card, path, tmp):
         for line in lines:
             log(17, "  " + line)
         p50[tp_mode] = json.loads(lines[-1])["p50_image_ms"]
-        ok_t = (len(per_image) == 2 and not any("WARNING" in ln for ln in lines)
+        ok_t = (len(per_image) == 3 and not any("WARNING" in ln for ln in lines)
                 and all(c == ANNY_LAUNCHES[tp_mode] and fin
                         and shp == (1, slots, ANNY_VERTICES, 3) and n > 0 and srt
                         for c, fin, shp, n, srt in per_image))
@@ -2299,7 +2297,7 @@ def serve_render(model, payload, card):
     t0 = time.perf_counter()
     full = render_meshes(img, meshes, [faces] * len(meshes), K_full)
     t_all = time.perf_counter() - t0
-    sub = meshes[:2]  # the numpy version takes seconds per mesh of this body model
+    sub = meshes[:1]  # the numpy version takes seconds per mesh of this body model
     t0 = time.perf_counter()
     compiled = render_meshes(img, sub, [faces] * len(sub), K_full)
     t_c = time.perf_counter() - t0
@@ -2410,7 +2408,7 @@ def serve_saturation(model, payloads, card):
 
                 def synced(x, K, batch_fn=batch_fn):
                     pending = batch_fn(x, K)
-                    pending.readback.wait()
+                    pending.wait()
                     return pending
 
                 s.batcher.batch_fn = synced

@@ -15,6 +15,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import hashlib
 import io
 import json
 import os
@@ -29,7 +30,10 @@ def build_infer(model_name: str, ckpt, model=None, cache_dir=None,
     """(infer, model): ``infer(img, det_thresh, nms_kernel_size, fov)`` →
     (overlay uint8, glb bytes, n_persons) for a ``model`` (built from
     ``model_name`` and ``ckpt`` on ``device`` when not given), whose ViT
-    weights are stored in bf16 here as for any inference."""
+    weights are stored in bf16 here as for any inference. The result cache
+    in ``cache_dir`` is keyed by the image, the parameters and a digest of
+    the weights and body model, so no entry made with other weights is
+    served."""
     from multihmr_tpu_torch.factory import build_model
     from multihmr_tpu_torch.io.preprocessing import rescale_K_to_original
     from multihmr_tpu_torch.render import overlay_human_meshes, create_glb_scene
@@ -47,16 +51,16 @@ def build_infer(model_name: str, ckpt, model=None, cache_dir=None,
     cast_backbone_bf16(model.net)  # inference: bf16 weight storage
     faces = model.body_model.faces.cpu().numpy()
     dev = model.body_model.v_template.device
+    weights = _weights_digest(model) if cache_dir is not None else None
 
     def _cache_paths(img, det_thresh, nms_kernel_size, fov):
         """Per-example result cache (reference app.py:83-103 keys results by
         example basename + params; we key by image content hash so repeated
-        uploads of the same image hit too, pruned to ``cache_max_entries``)."""
-        import hashlib
-
+        uploads of the same image hit too, and by the weights' digest;
+        pruned to ``cache_max_entries``)."""
         h = hashlib.sha1(np.ascontiguousarray(img).tobytes()).hexdigest()[:16]
         base = (
-            f"{h}_{model_name}_thresh{int(det_thresh * 100)}"
+            f"{h}_{model_name}_{weights}_thresh{int(det_thresh * 100)}"
             f"_nms{int(nms_kernel_size)}_fov{int(fov)}"
         )
         return (
@@ -120,6 +124,22 @@ def build_infer(model_name: str, ckpt, model=None, cache_dir=None,
     return infer, model
 
 
+def _weights_digest(model) -> str:
+    """sha1 of the network's weights and the body model's arrays, 16 hex digits."""
+    def arrays(obj, prefix=""):
+        for k, v in sorted(vars(obj).items()):
+            if torch.is_tensor(v):
+                yield prefix + k, v
+            elif hasattr(v, "__dataclass_fields__"):  # the Anny model's SMPL-like base
+                yield from arrays(v, prefix + k + ".")
+
+    h = hashlib.sha1()
+    for name, t in [*model.net.state_dict().items(), *arrays(model.body_model)]:
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def serve_stdlib(infer, port: int):
     """Minimal fallback server: POST image bytes to /infer → PNG overlay;
     GET /health → JSON."""
@@ -168,7 +188,7 @@ def main(argv=None):
     p.add_argument(
         "--cache_dir",
         type=str,
-        default=os.path.join(tempfile.gettempdir(), "multihmr_tpu_results"),
+        default=os.path.join(tempfile.gettempdir(), "multihmr_tpu_torch_results"),
         help="per-example result cache (reference app.py:97-103); '' disables",
     )
     args = p.parse_args(argv)

@@ -189,7 +189,7 @@ def main(argv=None):
         if pending is not None:
             done_name, done_img, done_persons = pending
             t0 = time.perf_counter()
-            done_persons.readback.wait()
+            done_persons.wait()
             waits.append(time.perf_counter() - t0)
             persons = finish_image(model, done_persons, done_img, done_name, args.out_folder,
                                    args.model_name, fov=args.fov,

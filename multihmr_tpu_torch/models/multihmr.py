@@ -193,16 +193,19 @@ class MultiHMR:
         """Padded ``[B, K]`` outputs → per-image lists of person dicts of numpy
         arrays. ``fields`` restricts which keys are read back to the host
         (default: all)."""
-        return self.start_persons(out, fields).persons()
+        valid = out["det"].valid.cpu().numpy()
+        # valid slots are a prefix of K: read back only [:, :kmax]
+        kmax = int(valid.sum(-1).max())
+        host = {name: out[src][:, :kmax].cpu().numpy() for name, src in _person_keys(fields)}
+        return persons_from_host({"valid": valid, **host})
 
-    def start_persons(self, out: dict, fields: Optional[list] = None) -> "PendingPersons":
+    def start_persons(self, out: dict, fields: Optional[list] = None) -> "Readback":
         """Enqueue the device→host copies of :meth:`extract_persons` (every
         slot of each field, so nothing waits for the count of valid ones) and
         return at once; ``.persons()`` waits for them and builds the lists."""
-        keys = [(name, src) for name, src in PERSON_FIELDS
-                if fields is None or name in fields]
-        rb = Readback({"valid": out["det"].valid, **{name: out[src] for name, src in keys}})
-        return PendingPersons(rb, persons_from_host)
+        tensors = {"valid": out["det"].valid,
+                   **{name: out[src] for name, src in _person_keys(fields)}}
+        return Readback(tensors, persons_from_host)
 
 
 # (person key, output key) of extract_persons, in its order
@@ -214,9 +217,14 @@ PERSON_FIELDS = (
 )
 
 
+def _person_keys(fields):
+    return [(name, src) for name, src in PERSON_FIELDS if fields is None or name in fields]
+
+
 def persons_from_host(host: dict) -> list:
-    """Host arrays ``{"valid": [B, K], field: [B, K, ...]}`` → per-image
-    lists of person dicts (the valid slots, a prefix of K)."""
+    """Host arrays ``{"valid": [B, K], field: [B, k, ...]}`` (``k`` at most
+    ``K``, at least the largest count of valid slots) → per-image lists of
+    person dicts (the valid slots, a prefix of K)."""
     valid = host.pop("valid")
     B, K = valid.shape
     full = valid.sum(-1) == K
@@ -224,12 +232,15 @@ def persons_from_host(host: dict) -> list:
         warnings.warn(
             f"{int(full.sum())} image(s) saturated the detection capacity "
             f"K={K}; people beyond it are dropped.", stacklevel=3)
-    return [[{name: a[b, k] for name, a in host.items()} for k in range(K) if valid[b, k] > 0]
+    k = next(iter(host.values())).shape[1] if host else K
+    return [[{name: a[b, i] for name, a in host.items()} for i in range(k) if valid[b, i] > 0]
             for b in range(B)]
 
 
 class Readback:
-    """Device→host copies of a dict of tensors, in flight.
+    """A forward's persons on their way to the host: device→host copies of a
+    dict of tensors, in flight, and ``build``, which turns the host arrays
+    into the persons.
 
     On a CUDA device each tensor is copied into its own pinned host buffer
     with ``non_blocking=True`` on the current stream, and one event is
@@ -238,9 +249,10 @@ class Readback:
     stream, so later work on the stream does not delay it. On the CPU the
     copies are done at once."""
 
-    def __init__(self, tensors: dict):
+    def __init__(self, tensors: dict, build):
         first = next(iter(tensors.values()))
         cuda = first.device.type == "cuda"
+        self.build = build
         self.host = {}
         for name, t in tensors.items():
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
@@ -257,12 +269,6 @@ class Readback:
             self.event.synchronize()
         return {name: h.numpy() for name, h in self.host.items()}
 
-
-class PendingPersons:
-    """A forward's persons on their way to the host (``start_persons``)."""
-
-    def __init__(self, readback: Readback, build):
-        self.readback, self._build = readback, build
-
     def persons(self) -> list:
-        return self._build(self.readback.wait())
+        """Wait for the copies; the per-image lists of person dicts."""
+        return self.build(self.wait())

@@ -34,7 +34,7 @@ from multihmr_tpu_torch.models.hph import (
     MaskedSelfAttention,
     init_linear_,
 )
-from multihmr_tpu_torch.models.multihmr import DTYPES, PendingPersons, Readback, RegressionMLP
+from multihmr_tpu_torch.models.multihmr import DTYPES, Readback, RegressionMLP
 from multihmr_tpu_torch.models.vit import DINOv2ViT
 from multihmr_tpu_torch.ops.camera import inverse_perspective_projection, perspective_projection
 from multihmr_tpu_torch.ops.detection import gather_grid, nms_maxpool, topk_detect
@@ -297,27 +297,36 @@ class MultiHMRAnny:
         """Padded ``[B, K]`` outputs → per-image lists of person dicts of
         numpy arrays, sorted near to far, each with the image's ``K``,
         ``K_regressed`` and ``fov``."""
-        return self.start_persons(out).persons()
+        valid = out["det"].valid.cpu().numpy()
+        # valid slots are a prefix of K: read back only [:, :kmax]
+        kmax = int(valid.sum(-1).max())
+        host = {k: out[k][:, :kmax].cpu().numpy() for k in _PERSON_KEYS}
+        host.update({k: out[k].cpu().numpy() for k in _IMAGE_KEYS})
+        return _anny_persons_from_host(dict(host, valid=valid))
 
-    def start_persons(self, out: dict) -> PendingPersons:
+    def start_persons(self, out: dict) -> Readback:
         """Enqueue :meth:`extract_persons`' device→host copies (every slot)
         and return at once; ``.persons()`` waits for them."""
-        keys = ("valid",) + _PERSON_KEYS + ("K", "K_regressed", "fov_regressed")
         src = dict(out, valid=out["det"].valid)
-        return PendingPersons(Readback({k: src[k] for k in keys}), _anny_persons_from_host)
+        return Readback({k: src[k] for k in ("valid",) + _PERSON_KEYS + _IMAGE_KEYS},
+                        _anny_persons_from_host)
 
 
 _PERSON_KEYS = ("loc", "transl", "transl_pelvis", "rotvec", "rotmat", "shape", "v3d", "j3d",
                 "j2d")
+_IMAGE_KEYS = ("K", "K_regressed", "fov_regressed")
 
 
 def _anny_persons_from_host(host: dict) -> list:
+    """Host arrays (``valid`` ``[B, K]``, the person fields ``[B, k, ...]``
+    with ``k`` at least the largest count of valid slots, the image fields
+    ``[B, ...]``) → per-image lists of persons, near to far."""
     valid = host["valid"]
     result = []
     for b in range(valid.shape[0]):
         persons = [dict({k: host[k][b, i] for k in _PERSON_KEYS}, K=host["K"][b],
                         K_regressed=host["K_regressed"][b], fov=host["fov_regressed"][b])
-                   for i in range(valid.shape[1]) if valid[b, i] > 0]
+                   for i in range(host["loc"].shape[1]) if valid[b, i] > 0]
         persons.sort(key=lambda p: float(p["transl"][2]))
         result.append(persons)
     return result

@@ -40,16 +40,15 @@ JSON_FIELDS = ["scores", "loc", "transl", "transl_pelvis", "j2d"]
 def build_batched_infer(model, max_batch: int = 8,
                         det_thresh: float = 0.3, nms_kernel_size: int = 3,
                         max_delay_ms: float = 5.0, forward_fn=None,
-                        fields=None, mesh=None, wire: str = "u8",
-                        max_queue: int = 0, deadline_s: float = 0.0):
+                        fields=None, mesh=None, max_queue: int = 0, deadline_s: float = 0.0):
     """(batcher, preprocess) for ``model`` (a ``MultiHMR`` on its device,
     weights included) at a fixed batch capacity.
 
     ``fields``: restrict the device→host readback per batch (see
-    ``MultiHMR.extract_persons``). ``wire``: "u8" (default) submits the
-    resized uint8 pixels and normalizes on the card; "f32" submits arrays
-    normalized on the host. ``forward_fn`` (an exported artifact, ROADMAP
-    M10) and ``mesh`` (data-parallel serving, M11) are not ported."""
+    ``MultiHMR.extract_persons``). Requests submit the resized uint8
+    pixels, normalized on the card. ``forward_fn`` (an exported artifact,
+    ROADMAP M10) and ``mesh`` (data-parallel serving, M11) are not
+    ported."""
     from multihmr_tpu_torch.io.preprocessing import preprocess_array
     from multihmr_tpu_torch.ops.image import IMG_NORM_MEAN, IMG_NORM_STD
     from multihmr_tpu_torch.serve.batcher import DynamicBatcher
@@ -60,9 +59,6 @@ def build_batched_infer(model, max_batch: int = 8,
     if mesh is not None:
         raise NotImplementedError("mesh= (data-parallel serving) is not ported yet: "
                                   "ROADMAP M11")
-    if wire not in ("u8", "f32"):
-        raise ValueError(f"wire must be 'u8' or 'f32', got {wire!r}")
-    wire_u8 = wire == "u8"
     device = model.body_model.v_template.device
     cuda = device.type == "cuda"
     mean = torch.from_numpy(IMG_NORM_MEAN).to(device)
@@ -75,9 +71,7 @@ def build_batched_infer(model, max_batch: int = 8,
     def batch_fn(x, K):
         # the worker thread's own grad mode: it does not inherit the caller's
         with torch.inference_mode():
-            x = upload(x)
-            if x.dtype == torch.uint8:  # u8 wire: normalize on the card
-                x = (x.float() / 255.0 - mean) / std
+            x = (upload(x).float() / 255.0 - mean) / std  # the u8 wire, normalized here
             out = model.forward(x, upload(K), det_thresh=det_thresh,
                                 nms_kernel_size=nms_kernel_size)
             return model.start_persons(out, fields)
@@ -88,15 +82,12 @@ def build_batched_infer(model, max_batch: int = 8,
     S = model.cfg.img_size
 
     def preprocess(img_rgb: np.ndarray, fov: float = 60.0):
-        p = preprocess_array(img_rgb, S, fov=fov)
-        if wire_u8:  # raw resized pixels; normalization happens on the card
-            return np.asarray(p.resized, np.uint8), p.K, p.original
-        return p.x, p.K, p.original
+        p = preprocess_array(img_rgb, S, fov=fov)  # raw resized pixels: the card normalizes
+        return np.asarray(p.resized, np.uint8), p.K, p.original
 
     batcher = DynamicBatcher(
         batch_fn, extract_fn, max_batch=max_batch, max_delay_ms=max_delay_ms,
-        wire_dtype=np.uint8 if wire_u8 else np.float32,
-        max_queue=max_queue, deadline_s=deadline_s,
+        wire_dtype=np.uint8, max_queue=max_queue, deadline_s=deadline_s,
     )
     return batcher, preprocess
 

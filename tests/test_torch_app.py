@@ -119,6 +119,33 @@ def test_result_cache_roundtrip(pair, tmp_path):  # noqa: F811
     assert glb3 != b"POISONED"
 
 
+def test_cache_keyed_by_weights(pair, tmp_path):  # noqa: F811
+    """An entry written with other weights is not served: the key holds a
+    digest of the weights, so the same weights built again hit the cache
+    and changed weights compute afresh."""
+    import copy
+
+    import torch
+
+    from multihmr_tpu_torch.cli.app import build_infer
+
+    cache = tmp_path / "cache"
+    img = np.random.default_rng(3).integers(0, 255, size=(64, 64, 3), dtype=np.uint8)
+    infer, _ = build_infer("tiny", None, model=copy.deepcopy(pair[3]), cache_dir=str(cache))
+    infer(img)
+    glb_fn = next(f for f in os.listdir(cache) if f.endswith(".glb"))
+    with open(cache / glb_fn, "wb") as f:
+        f.write(b"POISONED")
+    same, _ = build_infer("tiny", None, model=copy.deepcopy(pair[3]), cache_dir=str(cache))
+    assert same(img)[1] == b"POISONED"
+    other = copy.deepcopy(pair[3])
+    with torch.no_grad():
+        next(other.net.parameters()).add_(1.0)
+    infer_other, _ = build_infer("tiny", None, model=other, cache_dir=str(cache))
+    assert infer_other(img)[1][:4] == b"glTF"
+    assert len([f for f in os.listdir(cache) if f.endswith(".glb")]) == 2
+
+
 def test_cache_prunes_to_its_size(pair, tmp_path):  # noqa: F811
     import copy
 

@@ -101,7 +101,6 @@ def test_train_cli_visu_to_save(trees, capsys):
     (["--n_devices", "2"], "M11"),
     (["--model_parallel", "2"], "M11"),
     (["--fsdp", "1"], "M11"),
-    (["--n_devices", "4"], "M11"),
     (["--pretrained", "ckpt.msgpack"], "the JAX package's native format"),
 ])
 def test_unported_flags_raise(trees, flags, match):

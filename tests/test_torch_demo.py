@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
-from multihmr_tpu_torch.models.multihmr import PendingPersons, Readback, persons_from_host
+from multihmr_tpu_torch.models.multihmr import Readback, persons_from_host
 from tests.test_checkpoint import TinyConfig
 
 
@@ -46,7 +46,7 @@ class _FakeModel:
         return {"v3d": torch.zeros((1, 2, 12, 3))}
 
     def start_persons(self, out):
-        return PendingPersons(Readback({"valid": torch.zeros((1, 2))}), persons_from_host)
+        return Readback({"valid": torch.zeros((1, 2))}, persons_from_host)
 
 
 def _run_demo(tmp_path, monkeypatch, n_images):

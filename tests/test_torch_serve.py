@@ -215,7 +215,7 @@ def test_batch_fn_runs_without_autograd(model):
         assert torch.is_grad_enabled()
         pending = batcher.batch_fn(np.zeros((2, S, S, 3), np.uint8),
                                    np.tile(K_TINY, (2, 1, 1)))
-        assert all(not h.requires_grad for h in pending.readback.host.values())
+        assert all(not h.requires_grad for h in pending.host.values())
         x, K, pil = preprocess(np.zeros((30, 40, 3), np.uint8))
         assert x.dtype == np.uint8 and x.shape == (S, S, 3) and pil.size == (40, 30)
     finally:
@@ -325,6 +325,9 @@ def test_u8_wire_matches_host_normalized(model):
 
 
 def test_wire_dtype_mismatch_rejected(model):
+    """A batcher enforces one wire dtype (the coalesced buffer takes the
+    first request's): the server's uint8 batcher rejects fp32, and a
+    batcher built with either dtype rejects the other."""
     batcher, _ = build_batched_infer(model, max_batch=2, det_thresh=0.1, max_delay_ms=1.0)
     try:
         assert batcher.wire_dtype == np.uint8
@@ -332,13 +335,15 @@ def test_wire_dtype_mismatch_rejected(model):
             batcher.submit(np.zeros((S, S, 3), np.float32), np.eye(3))
     finally:
         batcher.close()
-    batcher, _ = build_batched_infer(model, max_batch=2, det_thresh=0.1, max_delay_ms=1.0,
-                                     wire="f32")
-    try:
-        with pytest.raises(TypeError, match="wire dtype"):
-            batcher.submit(np.zeros((S, S, 3), np.uint8), np.eye(3))
-    finally:
-        batcher.close()
+    for wire, other in ((np.uint8, np.float32), (np.float32, np.uint8)):
+        batcher = DynamicBatcher(lambda x, K: x, lambda o, n: list(o[:n]), max_batch=2,
+                                 max_delay_ms=0.0, wire_dtype=wire)
+        try:
+            with pytest.raises(TypeError, match="wire dtype"):
+                batcher.submit(np.zeros((4, 4, 3), other), np.eye(3))
+            assert batcher.submit(np.ones((4, 4, 3), wire), np.eye(3)).dtype == wire
+        finally:
+            batcher.close()
 
 
 @pytest.mark.parametrize("kw,match", [({"mesh": object()}, "M11"),
@@ -366,7 +371,7 @@ def test_http_server_json_only(model):
                 assert e.value.code == 400
                 pending = batcher.batch_fn(np.zeros((2, S, S, 3), np.uint8),
                                            np.tile(K_TINY, (2, 1, 1)))
-                assert set(pending.readback.host) == {
+                assert set(pending.host) == {
                     "valid", "scores", "loc", "transl", "transl_pelvis", "j2d"}
         finally:
             srv.shutdown()
