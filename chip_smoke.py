@@ -11,8 +11,9 @@ evaluation, and the same entry points from seeded checkpoints in the
 reference ``multiHMR_*.pt`` layout (the demo's ``--ckpt``, the CLI's
 ``--pretrained`` with its 3DPW evaluation), on the ViT's standard stream
 (``--tp_mode ring``, K5) and its channels-major one (``heads``, K1 and K2),
-and serving ``multiHMR_672_B`` at batch 8 through the HTTP server with its
-overlay renderer. Phases, one line each:
+serving ``multiHMR_672_B`` at batch 8 through the HTTP server with its
+overlay renderer, and the same model exported with ``torch.export`` and
+served from the artifact. Phases, one line each:
 
   1. the card, its name and power limit (nvidia-smi);
   2. the kernel build;
@@ -135,8 +136,30 @@ overlay renderer. Phases, one line each:
      ``cli/app.build_infer`` on 672_S: overlay and ``.glb``, then the cache;
      (h) ``cli/demo.py --extra_views 1 --distance 1 --save_mesh 1`` on two
      images at 896_L: every file the JAX demo writes, 24 K1 + 48 K2 each.
+ 19. export (``io/export.py``, K1/K2/K5 as ``torch.ops.mhmr`` operators):
+     (a) ``multiHMR_672_B`` at batch 8, bf16 backbone, exported with
+     ``torch.export`` on both streams, saved and loaded (seconds, the
+     ``model.pt2`` size): 12 K1 + 24 K2 operators in the heads graph, 12 K5
+     in the ring graph, no token-by-token score matrix in either and 24
+     fewer aten LayerNorms on heads; every output on a seeded batch against
+     the live forward (1e-5, the JAX export test's), and the launches per
+     batch through the artifact; (b) a fresh ``python3 -c`` process with
+     the port's ``models``, ``factory`` and ``bodymodel`` blocked loads
+     the heads artifact and runs it on the card against the same
+     reference outputs; (c) the batch-8 forward's host enqueue, wall
+     (CUDA events) and device busy time, artifact against live module,
+     and each operator's host cost per call against its direct wrapper at
+     the 672_B shapes; (d) ``cli/serve.build_server --artifact`` (heads):
+     phase 18's 48 requests, each bitwise equal to slot 0 of a batch-8
+     forward, 12 K1 + 24 K2 per batch, phase 18 (f)'s saturation traffic
+     beside phase 18's figures, and
+     ``memory_allocated`` after start against a live server's; (e)
+     ``multiHMR_672_L_anny`` at batch 1 on heads: the artifact against the
+     live forward and 24 K1 + 48 K2 launches.
 
-Then a JSON line of the kernels, the nvidia-smi line, and last
+Then a JSON line of the kernels (each with ``artifact_launches``, its
+launches per 672_B batch through phase 19's artifacts), the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
 Exits non-zero at once without a CUDA card.
 """
@@ -2053,12 +2076,14 @@ def run_clients(port, payloads, n_threads, query=""):
 
 
 class Serving:
-    """A ``make_server`` on an ephemeral port, served from a thread."""
+    """A ``make_server`` on an ephemeral port (or an already built
+    ``(server, batcher)``), served from a thread."""
 
-    def __init__(self, model, **kw):
+    def __init__(self, model=None, built=None, **kw):
         from multihmr_tpu_torch.serve import make_server, serve_forever_in_thread
 
-        self.srv, self.batcher = make_server(model, port=0, **kw)
+        self.srv, self.batcher = built if built is not None else make_server(model, port=0,
+                                                                              **kw)
         self.port = self.srv.server_address[1]
         serve_forever_in_thread(self.srv)
 
@@ -2369,11 +2394,30 @@ def serve_overload(model, payloads, card):
         raise AssertionError("(e) overload did not shed with 429 and 503 alone")
 
 
+def forward_alone(fn):
+    """(host ms to enqueue ``fn()``, wall ms to its end on the card, device
+    busy ms) of one forward, no other threads; medians after warm-up,
+    busy over a profile of 3 calls."""
+    from multihmr_tpu_torch.tools.train_smoke import busy_us
+
+    with torch.inference_mode():
+        enqueue = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        fwd = wall_ms(fn)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+    return float(np.median(enqueue[2:])), fwd, busy_us(prof.events()) / 1e3 / 3
+
+
 def serve_saturation(model, payloads, card):
     """(f) 256 requests from 16 clients, per server: images/s, latency,
     batching, the worker's phases, and the card's busy share."""
-    from multihmr_tpu_torch.tools.train_smoke import busy_us
-
     work = [payloads[i % len(payloads)] for i in range(256)]
     # one batch-8 forward alone, no HTTP threads: its host wall (enqueue
     # only, and to the end on the card) and the card's busy time
@@ -2381,19 +2425,7 @@ def serve_saturation(model, payloads, card):
     g = torch.Generator("cuda").manual_seed(18)
     x = torch.randn((8, S, S, 3), device="cuda", generator=g)
     K = torch.tensor([[[600.0, 0, S / 2], [0, 600.0, S / 2], [0, 0, 1]]] * 8, device="cuda")
-    with torch.inference_mode():
-        enqueue = []
-        for _ in range(12):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.forward(x, K)
-            enqueue.append((time.perf_counter() - t0) * 1e3)
-        fwd = wall_ms(lambda: model.forward(x, K))
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                model.forward(x, K)
-            torch.cuda.synchronize()
-    alone = (float(np.median(enqueue[2:])), fwd, busy_us(prof.events()) / 1e3 / 3)
+    alone = forward_alone(lambda: model.forward(x, K))
     log(18, f"(f) {SERVE} bf16 heads forward at batch 8 alone: enqueue {alone[0]:.2f} ms "
             f"(host), wall {alone[1]:.2f} ms to the end on the card, device busy {alone[2]:.2f} "
             f"ms per forward [{card}]")
@@ -2412,37 +2444,46 @@ def serve_saturation(model, payloads, card):
                     return pending
 
                 s.batcher.batch_fn = synced
-            busy = None
-            if profile:
-                with torch.profiler.profile(
-                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    res, wall = run_clients(s.port, work, 16)
-                    torch.cuda.synchronize()
-                busy = busy_us(prof.events()) / 1e3 / (wall * 1e3)
-            else:
-                res, wall = run_clients(s.port, work, 16)
-            st = s.batcher.stats
-            lat = np.array([r[3] for r in res]) * 1e3
-            snap = st.snapshot()
-            f = {"img_s": len(work) / wall, "p50": float(np.percentile(lat, 50)),
-                 "p95": float(np.percentile(lat, 95)), "mean_batch": snap["mean_batch_size"],
-                 "dispatch_p50": float(np.percentile(st.dispatch_ms, 50)),
-                 "extract_p50": float(np.percentile(st.extract_ms, 50)),
-                 "server_p50": float(np.percentile(st.latencies_ms, 50)),
-                 "server_p95": float(np.percentile(st.latencies_ms, 95)), "busy": busy,
-                 "ok": all(r[0] == 200 for r in res)}
-        figures[label] = f
-        log(18, f"(f) {SERVE} bf16 heads, {label}: 256 requests from 16 clients in "
-                f"{wall:.3f} s = {f['img_s']:.2f} images/s; client latency p50 {f['p50']:.1f} "
-                f"/ p95 {f['p95']:.1f} ms (server p50 {f['server_p50']:.1f} / p95 "
-                f"{f['server_p95']:.1f} ms); mean batch size {f['mean_batch']}, histogram "
-                f"{snap['batch_size_hist']}; dispatch_ms p50 {f['dispatch_p50']:.2f}, "
-                f"extract_ms p50 {f['extract_p50']:.2f}"
-                + ("" if busy is None else f"; card busy {100 * busy:.1f} % of the window")
-                + f" [{card}] {'ok' if f['ok'] else 'FAIL'}")
+            figures[label] = saturate(s, work, profile, 18, f"(f) {SERVE} bf16 heads, {label}",
+                                      card)
     if not all(f["ok"] for k, f in figures.items() if k != "alone"):
         raise AssertionError("(f) a request failed at saturation")
     return figures
+
+
+def saturate(s, work, profile, phase, label, card):
+    """``work`` from 16 clients against the server of ``s``: images/s,
+    client latency, batching, the worker's phases and (``profile``) the
+    card's busy share of the window."""
+    from multihmr_tpu_torch.tools.train_smoke import busy_us
+
+    busy = None
+    if profile:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res, wall = run_clients(s.port, work, 16)
+            torch.cuda.synchronize()
+        busy = busy_us(prof.events()) / 1e3 / (wall * 1e3)
+    else:
+        res, wall = run_clients(s.port, work, 16)
+    st = s.batcher.stats
+    lat = np.array([r[3] for r in res]) * 1e3
+    snap = st.snapshot()
+    f = {"img_s": len(work) / wall, "p50": float(np.percentile(lat, 50)),
+         "p95": float(np.percentile(lat, 95)), "mean_batch": snap["mean_batch_size"],
+         "dispatch_p50": float(np.percentile(st.dispatch_ms, 50)),
+         "extract_p50": float(np.percentile(st.extract_ms, 50)),
+         "server_p50": float(np.percentile(st.latencies_ms, 50)),
+         "server_p95": float(np.percentile(st.latencies_ms, 95)), "busy": busy,
+         "ok": all(r[0] == 200 for r in res)}
+    log(phase, f"{label}: {len(work)} requests from 16 clients in {wall:.3f} s = "
+               f"{f['img_s']:.2f} images/s; client latency p50 {f['p50']:.1f} / p95 "
+               f"{f['p95']:.1f} ms (server p50 {f['server_p50']:.1f} / p95 "
+               f"{f['server_p95']:.1f} ms); mean batch size {f['mean_batch']}, histogram "
+               f"{snap['batch_size_hist']}; dispatch_ms p50 {f['dispatch_p50']:.2f}, "
+               f"extract_ms p50 {f['extract_p50']:.2f}"
+               + ("" if busy is None else f"; card busy {100 * busy:.1f} % of the window")
+               + f" [{card}] {'ok' if f['ok'] else 'FAIL'}")
+    return f
 
 
 def serve_app(card, tmp):
@@ -2547,6 +2588,427 @@ def run_serving(build_model, demo, cast_backbone_bf16, cuda_lib, attention, norm
     return figures
 
 
+# ---- phase 19: export (a torch.export artifact) and serving from it
+
+# an artifact against the live forward on the same weights and inputs:
+# |got - want| <= 1e-5 (1 + |want|), tests/test_export.py's rtol = atol
+EXPORT_TOL = 1e-5
+
+# a fresh process loads an artifact with the port's model code blocked and
+# runs it on inputs and reference outputs read from a .pt file
+FRESH_LOAD = """
+import json, sys, time
+for name in ("multihmr_tpu_torch.models", "multihmr_tpu_torch.factory",
+             "multihmr_tpu_torch.bodymodel"):
+    sys.modules[name] = None  # importing any of them now raises
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from multihmr_tpu_torch.io.export import load_exported
+from multihmr_tpu_torch.ops import cuda_lib
+ref = torch.load(sys.argv[2])
+t0 = time.perf_counter()
+loaded = load_exported(sys.argv[1], device=sys.argv[3])
+t_load = time.perf_counter() - t0
+out = loaded(ref["x"], ref["K"])
+want = {k: v.to(loaded.device) for k, v in ref["out"].items()}
+assert sorted(out) == sorted(want), sorted(out)
+err = max((out[k].double() - want[k].double()).abs().max().item() for k in out)
+print(json.dumps({"max_abs_diff": err, "bitwise": all(torch.equal(out[k], want[k]) for k in out),
+                  "load_s": t_load, "launches": dict(cuda_lib.LAUNCHES),
+                  "model_code": sorted(m for m in sys.modules if m.startswith(
+                      ("multihmr_tpu_torch.models", "multihmr_tpu_torch.bodymodel"))
+                      and sys.modules[m] is not None)}))
+"""
+
+
+def output_err(got: dict, want: dict):
+    """(same keys, max abs difference, every key within EXPORT_TOL, bitwise)."""
+    same = sorted(got) == sorted(want)
+    err, within, bitwise = 0.0, same, same
+    for k in want:
+        if k not in got:
+            continue
+        a, b = got[k], want[k]
+        bitwise = bitwise and torch.equal(a, b)
+        if a.is_floating_point():
+            err = max(err, (a.double() - b.double()).abs().max().item())
+            within = within and torch.allclose(a, b, rtol=EXPORT_TOL, atol=EXPORT_TOL,
+                                               equal_nan=True)
+        else:
+            within = within and torch.equal(a, b)
+    return same, err, within, bitwise
+
+
+def plain_graph_ops(graph, n_tok, padded):
+    """(aten LayerNorm nodes, nodes whose output ends in a token-by-token
+    square, ``n_tok`` or ``padded`` tokens: a plain attention's score
+    matrix) in an FX graph."""
+    ln = scores = 0
+    for node in graph.nodes:
+        if node.op != "call_function":
+            continue
+        ln += "layer_norm" in str(node.target)
+        val = node.meta.get("val")
+        scores += (isinstance(val, torch.Tensor) and val.dim() >= 2
+                   and {*val.shape[-2:]} <= {n_tok, padded})
+    return ln, scores
+
+
+def export_timed(model, tmp, tag, batch, name):
+    """Export, save and load ``model``: (loaded, meta, dir, seconds of each)."""
+    from multihmr_tpu_torch.io.export import export_program, load_exported, save_exported
+
+    t0 = time.perf_counter()
+    program, meta = export_program(model, batch_size=batch, name=name)
+    t_exp = time.perf_counter() - t0
+    d = os.path.join(tmp, f"export_{tag}")
+    t0 = time.perf_counter()
+    save_exported(program, meta, d)
+    t_save = time.perf_counter() - t0
+    del program
+    t0 = time.perf_counter()
+    loaded = load_exported(d, device="cuda")
+    t_load = time.perf_counter() - t0
+    return loaded, meta, d, (t_exp, t_save, t_load)
+
+
+def export_672b(build_model, cast_backbone_bf16, cuda_lib, attention, names, card, tmp):
+    """(a) 672_B at batch 8, bf16 backbone, on both streams: export, save and
+    load seconds, the file's size, the kernel operators and no plain
+    attention or block LayerNorm in the graph, every output against the live
+    forward, launches per batch through the artifact."""
+    from multihmr_tpu_torch.io.export import make_serving_fn
+
+    res, ok = {}, True
+    for tp in ("heads", "ring"):
+        model = build_model(SERVE, device="cuda", seed=0, tp_mode=tp)
+        cast_backbone_bf16(model.net)
+        cfg = model.cfg
+        S, depth = cfg.img_size, cfg.vit.depth
+        g = torch.Generator("cuda").manual_seed(19)
+        x = torch.randn((8, S, S, 3), device="cuda", generator=g)
+        K = torch.tensor([[[600.0, 0, S / 2], [0, 600.0, S / 2], [0, 0, 1]]] * 8, device="cuda")
+        loaded, meta, d, secs = export_timed(model, tmp, tp, 8, SERVE)
+        counts = tuple(meta["kernel_ops"].values())  # K1, K2, K5
+        n_tok = 1 + cfg.grid_size ** 2
+        ln, scores = plain_graph_ops(loaded.program.graph, n_tok, attention.padded_len(n_tok))
+        with torch.inference_mode():
+            want = make_serving_fn(model)(x, K)
+        cuda_lib.reset_launches()  # the artifact's batch starts here
+        got = loaded(x, K)
+        torch.cuda.synchronize()
+        launches = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        same, err, within, bitwise = output_err(got, want)
+        want_ops = (depth, 2 * depth, 0) if tp == "heads" else (0, 0, depth)
+        ok_tp = (same and within and counts == want_ops and scores == 0
+                 and launches == SERVE_LAUNCHES[tp])
+        mib = os.path.getsize(os.path.join(d, "model.pt2")) / 2**20
+        held = (device_mib([*loaded.program.state_dict.values(),
+                            *loaded.program.constants.values()]),
+                device_mib([*model.net.state_dict().values(), *vars(model.body_model).values()]))
+        log(19, f"(a) {tp}: device tensors held, artifact {held[0]:.1f} MiB (weights and "
+                f"constants), live model {held[1]:.1f} MiB (net and body model)")
+        log(19, f"(a) {SERVE} bf16 {tp}, batch 8: export {secs[0]:.2f} s, save {secs[1]:.2f} s, "
+                f"load {secs[2]:.2f} s, model.pt2 {mib:.1f} MiB; graph K1/K2/K5 operators "
+                f"{counts} (want {want_ops}), aten LayerNorms {ln}, score matrices {scores}; "
+                f"{len(got)} outputs against the live forward: max |diff| {err:.3e} (tol "
+                f"{EXPORT_TOL:g}), {'bitwise' if bitwise else 'not bitwise'}; launches K1/K2/K5 "
+                f"{launches} (want {SERVE_LAUNCHES[tp]}) [{card}] {'ok' if ok_tp else 'FAIL'}")
+        res[tp] = {"secs": secs, "mib": mib, "err": err, "bitwise": bitwise, "ln": ln,
+                   "launches": launches, "dir": d, "depth": depth, "held": held}
+        ok = ok and ok_tp
+        if tp == "heads":
+            res["live"] = (model, loaded, x, K, want)
+        del model, loaded, got
+        torch.cuda.empty_cache()
+    # the standard stream's block LayerNorms are plain by design (K5 only):
+    # the channels-major graph has 2 x depth fewer, each one a K2
+    depth = res["heads"]["depth"]
+    ok_ln = res["ring"]["ln"] - res["heads"]["ln"] == 2 * depth
+    log(19, f"(a) aten LayerNorms ring {res['ring']['ln']} - heads {res['heads']['ln']} = "
+            f"{res['ring']['ln'] - res['heads']['ln']} (want {2 * depth}: the blocks' two "
+            f"each, K2 on heads) {'ok' if ok_ln else 'FAIL'}")
+    if not (ok and ok_ln):
+        raise AssertionError("(a) an artifact disagrees with the live model or its graph")
+    return res
+
+
+def export_fresh_process(d, x, K, want, cuda_lib, names, card, tmp):
+    """(b) a fresh python3 process loads the heads artifact with the port's
+    models, factory and bodymodel blocked and runs it on the card."""
+    ref = os.path.join(tmp, "export_ref.pt")
+    torch.save({"x": x.cpu(), "K": K.cpu(), "out": {k: v.cpu() for k, v in want.items()}}, ref)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, d, ref, "cuda"], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(b) the fresh process exited with {proc.returncode}:\n"
+                             + proc.stderr[-4000:])
+    r = json.loads(proc.stdout.splitlines()[-1])
+    launches = tuple(r["launches"].get(k, 0) for k in names)
+    ok = (r["max_abs_diff"] <= EXPORT_TOL and not r["model_code"]
+          and launches == SERVE_LAUNCHES["heads"])
+    log(19, f"(b) fresh python3 -c, models/factory/bodymodel blocked: load {r['load_s']:.2f} s, "
+            f"max |diff| {r['max_abs_diff']:.3e} ({'bitwise' if r['bitwise'] else 'not bitwise'})"
+            f", launches K1/K2/K5 {launches}, model code imported {r['model_code']}; "
+            f"{secs:.1f} s with the interpreter's start [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(b) the fresh-process load failed")
+    return r
+
+
+def free_cached():
+    """Free what no tensor holds: garbage, the allocator's cache and the
+    cuBLAS workspaces (a server's worker thread takes a cuBLAS handle, and
+    its workspace, from a pool that outlives the thread), so that a server's
+    ``memory_allocated`` after start counts what it allocated itself."""
+    import gc
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def device_mib(tensors) -> float:
+    """MiB of the distinct device storages under ``tensors``."""
+    st = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors
+          if isinstance(t, torch.Tensor) and t.is_cuda}
+    return sum(st.values()) / 2**20
+
+
+def host_us(fn, rounds=10, calls=100):
+    """Median host microseconds per call of ``fn()`` over ``rounds`` runs of
+    ``calls`` back-to-back calls (enqueue only; synchronized between runs)."""
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def event_ms(fn, reps=10, warmup=2):
+    """Median milliseconds of one ``fn()`` between CUDA events recorded just
+    before and just after it (the host's enqueue gaps included)."""
+    with torch.inference_mode():
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def export_timing(model, loaded, x, K, attention, norm, card):
+    """(c) the batch-8 forward, artifact against live module (turns live,
+    artifact, artifact, live): host enqueue, wall between CUDA events and
+    device busy; and each operator's host cost per call against its direct
+    wrapper at the 672_B shapes (turns op, direct, direct, op; 1,000 calls
+    each)."""
+    fns = {"live": lambda: model.forward(x, K), "artifact": lambda: loaded(x, K)}
+    turns = {"live": [], "artifact": []}
+    for side in ("live", "artifact", "artifact", "live"):
+        enq, _, busy = forward_alone(fns[side])
+        turns[side].append((enq, event_ms(fns[side]), busy))
+    fwd = {side: tuple(float(np.mean(v)) for v in zip(*t)) for side, t in turns.items()}
+    for side, (enq, wall, busy) in fwd.items():
+        log(19, f"(c) {SERVE} bf16 heads forward at batch 8, {side}: enqueue {enq:.2f} ms "
+                f"(host), wall {wall:.2f} ms (CUDA events), device busy {busy:.2f} ms "
+                f"(mean of 2 turns) [{card}]")
+    scale = 64 ** -0.5
+    q, k, v = qkv_views(2312, torch.bfloat16, heads=12, kv_len=2305, batch=8)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    xn = torch.randn((8, 768, 2312), device="cuda", generator=g).to(torch.bfloat16)
+    sn, bn = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    qkv = torch.randn((8, 2305, 3, 12, 64), device="cuda", generator=g).to(torch.bfloat16)
+    pairs = {
+        "K1 flash_fwd_t [8,12,64,2312]": (
+            lambda: attention.FLASH_FWD_T(q, k, v, scale, 2305),
+            lambda: attention._flash_fwd_t_cuda(q, k, v, scale, 2305)),
+        "K2 layernorm_cm [8,768,2312]": (
+            lambda: norm.LAYERNORM_CM(xn, sn, bn, 1e-6, torch.bfloat16),
+            lambda: norm._layernorm_cm_cuda(xn, sn, bn, 1e-6, torch.bfloat16)),
+        "K5 attention_qkv [8,2305,3,12,64]": (
+            lambda: attention.ATTENTION_QKV(qkv, scale),
+            lambda: attention._attention_qkv_cuda(qkv, scale)),
+    }
+    cost = {}
+    for label, (op, direct) in pairs.items():
+        t = {"op": [], "direct": []}
+        for side, fn in (("op", op), ("direct", direct), ("direct", direct), ("op", op)):
+            t[side].append(host_us(fn))
+        cost[label] = (float(np.mean(t["op"])), float(np.mean(t["direct"])))
+        log(19, f"(c) host cost per call, {label}: torch.ops.mhmr {cost[label][0]:.1f} us, "
+                f"direct wrapper {cost[label][1]:.1f} us (2 turns of 10 x 100 calls each) "
+                f"[{card}]")
+    return {"fwd": fwd, "host_us": cost}
+
+
+def export_serving(d, cuda_lib, names, card, sat18):
+    """(d) cli/serve.build_server --artifact (heads): phase 18's 48 requests,
+    each bitwise equal to its image alone in slot 0 of a batch-8 forward;
+    launches per batch; the saturation traffic of phase 18 (f); memory
+    after start against the live server's."""
+    from multihmr_tpu_torch.cli import serve
+    from multihmr_tpu_torch.io.export import read_meta
+    from multihmr_tpu_torch.serve import BatcherStats
+
+    payloads = [jpeg_bytes(synthetic_image(100 + i, *SERVE_SIZES[i % 3])) for i in range(48)]
+    work = [payloads[i % len(payloads)] for i in range(256)]
+    free_cached()
+    base = torch.cuda.memory_allocated()
+    built = serve.build_server(serve.parse_args(["--artifact", d, "--port", "0"]))
+    mem = {"artifact": (torch.cuda.memory_allocated() - base) / 2**20}
+    with Serving(built=built) as s:
+        del built
+        cuda_lib.reset_launches()  # the artifact server's run starts here
+        res, wall = run_clients(s.port, payloads, 12)
+        launches = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+        snap = http_get_json(s.port, "/stats")
+        answers = [json.loads(b) if st == 200 else None for st, _, b, _ in res]
+        want = tuple(snap["batches"] * c for c in SERVE_LAUNCHES["heads"])
+        worst, counts_equal, bitwise = 0.0, True, True
+        for payload, a in zip(payloads, answers):
+            if a is None:
+                continue
+            ref = slot0_reference(s.batcher, payload, read_meta(d)["img_size"])
+            counts_equal = counts_equal and ref["count"] == a["count"]
+            bitwise = bitwise and ref == a
+            for pa, pr in zip(a["persons"], ref["persons"]):
+                worst = max(worst, json_err(pr, pa))
+        n_ok = sum(a is not None for a in answers)
+        ok = n_ok == 48 and snap["requests"] == 48 and launches == want and bitwise
+        log(19, f"(d) cli/serve --artifact (heads): 48 JPEGs from 12 clients, {n_ok} answered "
+                f"200 in {wall:.2f} s; batches {snap['batches']}, mean batch size "
+                f"{snap['mean_batch_size']}; launches K1/K2/K5 {launches} (want {want}); each "
+                f"against its image alone in slot 0 of a batch-8 forward: counts "
+                f"{'equal' if counts_equal else 'DIFFER'}, worst field error {worst:.3e}, "
+                f"{'bitwise' if bitwise else 'NOT BITWISE'} (want bitwise) "
+                f"{'ok' if ok else 'FAIL'}")
+        sat = {}
+        for label, profile in (("full", False), ("full, profiled", True)):
+            s.batcher.stats = BatcherStats()
+            sat[label] = saturate(s, work, profile, 19, f"(d) {SERVE} artifact server, {label}",
+                                  card)
+            f18 = (sat18 or {}).get(label)
+            if f18:
+                log(19, f"(d) phase 18's live server, {label}: {f18['img_s']:.2f} images/s, "
+                        f"p50 {f18['p50']:.1f} / p95 {f18['p95']:.1f} ms, dispatch_ms p50 "
+                        f"{f18['dispatch_p50']:.2f}, mean batch {f18['mean_batch']}"
+                        + ("" if f18["busy"] is None else f", card busy {100 * f18['busy']:.1f} %"))
+    free_cached()
+    base = torch.cuda.memory_allocated()
+    with Serving(built=serve.build_server(serve.parse_args(["--port", "0"]))):
+        mem["live"] = (torch.cuda.memory_allocated() - base) / 2**20
+    log(19, f"(d) torch.cuda.memory_allocated() after start: artifact server "
+            f"{mem['artifact']:.1f} MiB, live server {mem['live']:.1f} MiB [{card}]")
+    ok = ok and all(f["ok"] for f in sat.values()) and mem["artifact"] <= 1.05 * mem["live"]
+    if not ok:
+        raise AssertionError("(d) serving from the artifact failed")
+    return {"sat": sat, "mem": mem, "launches": launches, "batches": snap["batches"],
+            "worst": worst, "bitwise": bitwise}
+
+
+def export_anny(build_model, cast_backbone_bf16, cuda_lib, names, card, tmp):
+    """(e) multiHMR_672_L_anny at batch 1, heads, on the synthetic asset at
+    ANNY_VERTICES vertices: the artifact against the live forward, and its
+    launches."""
+    from multihmr_tpu_torch.bodymodel.anny import AnnyModel, save_anny_npz, synthetic_anny_model
+    from multihmr_tpu_torch.io.export import make_serving_fn
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+
+    npz = os.path.join(tmp, "anny.npz")
+    if not os.path.exists(npz):  # phase 17 wrote it
+        save_anny_npz(npz, AnnyModel.from_arrays(
+            synthetic_anny_model(num_vertices=ANNY_VERTICES), "cpu"))
+    env = os.environ.get("ANNY_NPZ")
+    os.environ["ANNY_NPZ"] = npz
+    try:
+        model = build_model(ANNY, device="cuda", seed=0)
+    finally:
+        if env is None:
+            os.environ.pop("ANNY_NPZ", None)
+        else:
+            os.environ["ANNY_NPZ"] = env
+    cast_backbone_bf16(model.net)
+    loaded, meta, d, secs = export_timed(model, tmp, "anny", 1, ANNY)
+    pre = preprocess_array(synthetic_image(0, 480, 640), model.cfg.img_size)
+    x, K = (torch.from_numpy(a)[None].cuda() for a in (pre.x, pre.K))
+    with torch.inference_mode():
+        want = make_serving_fn(model)(x, K)
+    cuda_lib.reset_launches()  # the Anny artifact's image starts here
+    got = loaded(x, K)
+    torch.cuda.synchronize()
+    launches = tuple(cuda_lib.LAUNCHES[k] for k in names)  # read just after it
+    same, err, within, bitwise = output_err(got, want)
+    counts = tuple(meta["kernel_ops"].values())  # K1, K2, K5
+    depth = model.cfg.vit.depth
+    want_launches = (depth, 2 * depth, 0)  # K1 once and K2 twice per block (24 at 672_L)
+    ok = same and within and launches == want_launches and counts == want_launches
+    mib = os.path.getsize(os.path.join(d, "model.pt2")) / 2**20
+    log(19, f"(e) {ANNY} bf16 heads, batch 1: export {secs[0]:.2f} s, save {secs[1]:.2f} s, load "
+            f"{secs[2]:.2f} s, model.pt2 {mib:.1f} MiB; graph operators {counts}; {len(got)} "
+            f"outputs against the live forward: max |diff| {err:.3e} (tol {EXPORT_TOL:g}), "
+            f"{'bitwise' if bitwise else 'not bitwise'}; launches K1/K2/K5 {launches} (want "
+            f"{want_launches}) [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(e) the Anny artifact disagrees with the live model")
+    return {"secs": secs, "mib": mib, "err": err, "launches": launches}
+
+
+def run_export(build_model, cast_backbone_bf16, cuda_lib, attention, norm, card, tmp, sat18):
+    """Phase 19: the torch.export artifact of 672_B (both streams) and of the
+    Anny family, loaded without model code, timed against the live module,
+    and served through cli/serve --artifact. Every part runs; the phase
+    fails at its end if any did."""
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    failed, figures = [], {}
+
+    def part(tag, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        except Exception:
+            failed.append(tag)
+            log(19, f"({tag}) FAIL\n" + traceback.format_exc())
+            return None
+        finally:
+            log(19, f"({tag}) took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res = part("a", export_672b, build_model, cast_backbone_bf16, cuda_lib, attention, names,
+               card, tmp)
+    if res is not None:
+        model, loaded, x, K, want = res.pop("live")
+        figures["a"] = res
+        figures["b"] = part("b", export_fresh_process, res["heads"]["dir"], x, K, want,
+                            cuda_lib, names, card, tmp)
+        figures["c"] = part("c", export_timing, model, loaded, x, K, attention, norm, card)
+        del model, loaded, x, K, want
+        torch.cuda.empty_cache()
+        figures["d"] = part("d", export_serving, res["heads"]["dir"], cuda_lib, names, card,
+                            sat18)
+    figures["e"] = part("e", export_anny, build_model, cast_backbone_bf16, cuda_lib, names,
+                        card, tmp)
+    torch.cuda.empty_cache()
+    log(19, f"phase 19 took {time.perf_counter() - t0:.1f} s")
+    if failed or res is None:
+        raise AssertionError(f"phase 19 parts failed: {failed}")
+    return figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2615,10 +3077,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         serving = phase(18, run_serving, build_model, demo, cast_backbone_bf16, cuda_lib,
                         attention, norm, card, tmp)
+        torch.cuda.empty_cache()
+        exported = phase(19, run_export, build_model, cast_backbone_bf16, cuda_lib, attention,
+                         norm, card, tmp, serving and serving["sat"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref, anny, serving):
+                          cli_launches, ref, anny, serving, exported):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
@@ -2649,13 +3114,26 @@ def main() -> int:
                                            f", card busy {100 * f['busy']:.1f} %")
                    + f" [{card}]")
 
+    ex = exported["a"]
+    log("end", f"{SERVE} bf16 batch 8 artifacts: heads export {ex['heads']['secs'][0]:.2f} s, "
+               f"load {ex['heads']['secs'][2]:.2f} s, {ex['heads']['mib']:.1f} MiB; ring "
+               f"export {ex['ring']['secs'][0]:.2f} s; forward wall live "
+               f"{exported['c']['fwd']['live'][1]:.2f} / artifact "
+               f"{exported['c']['fwd']['artifact'][1]:.2f} ms; artifact server "
+               f"{exported['d']['sat']['full']['img_s']:.2f} images/s [{card}]")
+    # launches per batch through the 672_B artifacts (phase 19 (a)): K1 and
+    # K2 on heads, K5 on ring; the backward kernels are not in an export
+    artifact_launches = {attention.KERNEL: ex["heads"]["launches"][0],
+                         norm.KERNEL: ex["heads"]["launches"][1],
+                         attention.KERNEL_STD: ex["ring"]["launches"][2]}
+
     def entry(name, source, replaces, err, times):
         ms, plain_ms, library_ms, b_ms, b_by = times
         return {"name": name, "route": "cuda", "source": f"multihmr_tpu_torch/csrc/{source}",
                 "replaces": f"multihmr_tpu/ops/{replaces}",
                 "launches": launches.get(name, 0), "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library_ms}
+                "library_ms": library_ms, "artifact_launches": artifact_launches.get(name, 0)}
 
     kernels = [
         entry(attention.KERNEL, "flash_fwd.cu", "attention.py:399", k1_err, fwd["k1"]),

@@ -3,6 +3,7 @@
     python -m multihmr_tpu_torch.cli.serve --model_name multiHMR_672_B \
         [--ckpt multiHMR_672_B.pt] [--port 8000] [--max_batch 8] \
         [--max_delay_ms 5] [--device cuda] [--tp_mode heads]
+    python -m multihmr_tpu_torch.cli.serve --artifact exported/672B [--port 8000]
 
 Unlike ``cli.app`` (the interactive single-image demo mirroring reference
 app.py), this serves concurrent clients through a dynamic batcher that
@@ -12,16 +13,24 @@ coalesces requests into one fixed-shape batch on the card
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
 card it raises unless given ``--device cpu``) and ``--tp_mode`` (``heads``:
 the ViT's channels-major stream, K1 + K2; ``ring``: the standard one, K5).
-``--artifact`` (an exported model, ROADMAP M10) and ``--dp`` (data-parallel
-serving, M11) are not ported and raise. An Anny-family name is refused at
-start: the server reads back ``extract_persons(out, fields)``, which
-``MultiHMRAnny`` does not take (the JAX server fails on every request for
-such a name).
+``--dp`` (data-parallel serving, ROADMAP M11) is not ported and raises. An
+Anny-family name is refused at start: the server reads back
+``extract_persons(out, fields)``, which ``MultiHMRAnny`` does not take (the
+JAX server fails on every request for such a name).
+
+``--artifact``: serve a ``tools/export_model.py`` artifact (``io/export.py``).
+The name, weights, stream, batch shape and detection parameters come from
+the artifact, which must have been exported on ``--device``; flags that
+differ from what it bakes in are ignored with a warning, and so is
+``--ckpt``. The model object beside it only reads the persons back and
+gives the overlay's faces (``factory.build_host_model``: the body model on
+the host, a net without weights), so the card holds the weights once.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
@@ -31,7 +40,7 @@ def parse_args(argv=None):
     p.add_argument("--model_name", type=str, default="multiHMR_672_B")
     p.add_argument("--ckpt", type=str, default=None)
     p.add_argument("--artifact", type=str, default=None,
-                   help="serve an exported artifact directory (not ported: M10)")
+                   help="serve an exported artifact directory (tools/export_model.py)")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--max_delay_ms", type=float, default=5.0)
@@ -55,14 +64,39 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _artifact_meta(args) -> dict:
+    """The artifact's meta.json; its name must be a known configuration."""
+    from multihmr_tpu_torch.factory import SMPLX_NAMES
+    from multihmr_tpu_torch.io.export import read_meta
+
+    meta = read_meta(args.artifact)
+    name = meta.get("name", "")
+    if name not in SMPLX_NAMES and "anny" not in name:
+        raise ValueError(
+            f"artifact meta name {name!r} is not a known config: re-export with python -m "
+            "multihmr_tpu_torch.tools.export_model (which records --model_name) or "
+            "export_model(name=...)")
+    # detection parameters and batch shape are baked into the artifact:
+    # warn where a flag would silently diverge from it
+    for flag, key in (("det_thresh", "det_thresh"), ("nms_kernel_size", "nms_kernel_size"),
+                      ("max_batch", "batch_size")):
+        want, have = getattr(args, flag), meta[key]
+        if want != have:
+            print(f"WARNING: --{flag}={want} ignored — the artifact bakes {key}={have}",
+                  file=sys.stderr)
+        setattr(args, flag, have)
+    if args.ckpt is not None:
+        print("WARNING: --ckpt ignored — weights come from the artifact", file=sys.stderr)
+    args.model_name, args.tp_mode = name, meta["tp_mode"]
+    return meta
+
+
 def build_server(args):
     """(server, batcher) for parsed flags; raises for what is not ported."""
-    if args.artifact is not None:
-        raise NotImplementedError("--artifact (an exported model) is not ported yet: "
-                                  "ROADMAP M10")
     if args.dp:
         raise NotImplementedError("--dp (data-parallel serving) is not ported yet: "
                                   "ROADMAP M11")
+    meta = None if args.artifact is None else _artifact_meta(args)
     if "anny" in args.model_name:
         raise ValueError(
             f"{args.model_name}: the server reads back extract_persons(out, fields), "
@@ -76,19 +110,30 @@ def build_server(args):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    from multihmr_tpu_torch.factory import build_model
+    from multihmr_tpu_torch.factory import build_host_model, build_model
     from multihmr_tpu_torch.serve import make_server
     from multihmr_tpu_torch.utils.precision import cast_backbone_bf16
 
-    model = build_model(args.model_name, device=args.device, seed=0, checkpoint=args.ckpt,
-                        tp_mode=args.tp_mode)
-    if args.ckpt is None:
-        print("WARNING: no checkpoint given — running with random weights")
-    cast_backbone_bf16(model.net)  # inference: bf16 weight storage, after the load
+    forward_fn = None
+    if meta is not None:
+        from multihmr_tpu_torch.io.export import as_model_forward, load_exported
+
+        loaded = load_exported(args.artifact, device=args.device)
+        model = build_host_model(args.model_name)
+        if model.cfg.img_size != loaded.img_size:
+            raise ValueError(f"artifact img_size {loaded.img_size} != {model.cfg.img_size} of "
+                             f"the config {args.model_name!r}")
+        forward_fn = as_model_forward(loaded)
+    else:
+        model = build_model(args.model_name, device=args.device, seed=0,
+                            checkpoint=args.ckpt, tp_mode=args.tp_mode)
+        if args.ckpt is None:
+            print("WARNING: no checkpoint given — running with random weights")
+        cast_backbone_bf16(model.net)  # inference: bf16 weight storage, after the load
     return make_server(
         model, port=args.port, max_batch=args.max_batch,
         det_thresh=args.det_thresh, nms_kernel_size=args.nms_kernel_size,
-        max_delay_ms=args.max_delay_ms, json_only=args.json_only,
+        max_delay_ms=args.max_delay_ms, forward_fn=forward_fn, json_only=args.json_only,
         max_queue=args.max_queue, deadline_s=args.deadline_s,
     )
 

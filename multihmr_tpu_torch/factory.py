@@ -10,7 +10,8 @@ so that one seed gives the same weights whatever the device, then moved to
 present under ``$SMPLX_DIR`` (default ``models``), else the synthetic
 stand-in with SMPL-X's dimensions; the Anny one is ``$ANNY_NPZ``, else
 ``$SMPLX_DIR/anny.npz`` (``tools/convert_anny.py`` writes it), else
-``synthetic_anny_model()``.
+``synthetic_anny_model()``. :func:`build_host_model` gives the weightless
+model that serves an exported artifact.
 """
 
 from __future__ import annotations
@@ -101,3 +102,17 @@ def build_model(name: str = "multiHMR_896_L", device="cuda", seed: int = 0,
     net = _net(MultiHMRNet, cfg, tp_mode, seed, state)
     bm = load_body_model(device, cfg.num_betas)
     return MultiHMR(cfg, bm, net=net.to(device).eval())
+
+
+def build_host_model(name: str) -> MultiHMR:
+    """The ``MultiHMR`` that serves an exported artifact (``io/export.py``,
+    ``cli/serve.py --artifact``): the configuration and the body model on
+    the host, for reading the persons back and for the overlay's faces, and
+    a net on the meta device, which holds no weights: the artifact carries
+    them, so the card holds them once."""
+    if name not in SMPLX_NAMES:
+        raise KeyError(f"{name!r} is not a ported SMPL-X configuration; known: {SMPLX_NAMES}")
+    cfg = named_config(name)
+    with torch.device("meta"):
+        net = MultiHMRNet(cfg)
+    return MultiHMR(cfg, load_body_model("cpu", cfg.num_betas), net=net)

@@ -29,6 +29,15 @@ entries' TPU tiling arguments (``block_q``, ``block_kv``, ``pad_to``,
 ``interpret``) and the ``N >= 1024`` flash threshold of its dispatchers are
 TPU tuning and are not ported: on CUDA ``attention_qkv`` takes K5 at every
 N.
+
+The forward kernels are operators, so that ``torch.export`` records them
+(``io/export.py``): ``torch.ops.mhmr.flash_fwd_t`` (K1, under
+``_flash_fwd_impl_t``) and ``torch.ops.mhmr.attention_qkv`` (the standard
+stream's inference attention: K5 and the heads merge on CUDA,
+:func:`mha_reference` on the CPU). Each has a CPU, a CUDA and a fake
+(shapes and dtypes) implementation; the eager model calls them too. The
+backward kernels K3, K4a and K4b stay direct ``ctypes`` calls: an export is
+inference only.
 """
 
 from __future__ import annotations
@@ -170,16 +179,41 @@ def _dispatch(q, what):
     return q.device.type == "cuda"
 
 
+# ---------------------------------------------------------------------------
+# Operators: torch.ops.mhmr.flash_fwd_t (K1) here, attention_qkv (K5) at the
+# end of the file. The dispatcher picks the implementation by the tensors'
+# device: CPU the plain version, CUDA the kernel's wrapper (which raises on
+# what the kernel does not take). The fake implementation gives shapes and
+# dtypes only, so torch.export traces through it without touching the card.
+
+_LIB = torch.library.Library(cuda_lib.OP_NAMESPACE, "FRAGMENT")
+_LIB.define("flash_fwd_t(Tensor q, Tensor k, Tensor v, float scale, int kv_len) "
+            "-> (Tensor, Tensor)")
+_LIB.impl("flash_fwd_t", mha_reference_t, "CPU")
+_LIB.impl("flash_fwd_t", _flash_fwd_t_cuda, "CUDA")
+
+
+@torch.library.register_fake(f"{cuda_lib.OP_NAMESPACE}::flash_fwd_t", lib=_LIB)
+def _flash_fwd_t_fake(q, k, v, scale, kv_len):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_fwd_t expects q, k, v [B, H, Dh, N], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Dh, N = q.shape
+    return q.new_empty((B, H, Dh, N)), q.new_empty((B, H, N), dtype=torch.float32)
+
+
+FLASH_FWD_T = torch.ops.mhmr.flash_fwd_t.default
+
+
 def _flash_fwd_impl_t(q, k, v, scale=None, kv_len=None):
-    """``[B, H, Dh, N]`` in → (out ``[B, H, Dh, N]``, lse ``[B, H, N]``).
+    """``[B, H, Dh, N]`` in → (out ``[B, H, Dh, N]``, lse ``[B, H, N]``),
+    through the operator ``mhmr::flash_fwd_t``.
 
     CPU tensor: the plain version. CUDA tensor: kernel K1, or raise."""
-    if not _dispatch(q, "_flash_fwd_impl_t"):
-        return mha_reference_t(q, k, v, scale, kv_len)
-    N = q.shape[-1]
+    _dispatch(q, "_flash_fwd_impl_t")
     if scale is None:
         scale = q.shape[-2] ** -0.5
-    return _flash_fwd_t_cuda(q, k, v, scale, N if kv_len is None else kv_len)
+    return FLASH_FWD_T(q, k, v, scale, q.shape[-1] if kv_len is None else kv_len)
 
 
 def _out_strides(t, shape, what):
@@ -434,10 +468,45 @@ def flash_attention_qkv(qkv, scale=None):
     return _FlashAttentionQKV.apply(qkv, scale)
 
 
+def _attention_qkv_cpu(qkv, scale):
+    return _merge_heads(mha_reference(*_unpack(qkv), scale))
+
+
+def _attention_qkv_cuda(qkv, scale):
+    return _merge_heads(_flash_fwd_std(*_unpack(qkv), scale)[0])
+
+
+# the standard stream's attention as one operator, where attention_qkv
+# dispatches: CPU the JAX package's path off the TPU (mha_reference, not
+# K5's plain version), CUDA kernel K5. Functional: a new [B, N, H * Dh].
+_LIB.define("attention_qkv(Tensor qkv, float scale) -> Tensor")
+_LIB.impl("attention_qkv", _attention_qkv_cpu, "CPU")
+_LIB.impl("attention_qkv", _attention_qkv_cuda, "CUDA")
+
+
+@torch.library.register_fake(f"{cuda_lib.OP_NAMESPACE}::attention_qkv", lib=_LIB)
+def _attention_qkv_fake(qkv, scale):
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"attention_qkv expects qkv [B, N, 3, H, Dh], got {tuple(qkv.shape)}")
+    B, N, _, H, Dh = qkv.shape
+    return qkv.new_empty((B, N, H * Dh))
+
+
+ATTENTION_QKV = torch.ops.mhmr.attention_qkv.default
+
+
 def attention_qkv(qkv, scale=None):
     """The standard-stream ViT's attention: packed ``[B, N, 3, H, Dh]`` →
-    ``[B, N, H * Dh]``. CUDA: :func:`flash_attention_qkv`; CPU:
-    :func:`mha_reference`, the JAX package's path off the TPU."""
-    if _dispatch(qkv, "attention_qkv"):
+    ``[B, N, H * Dh]``. With no graph being recorded, the operator
+    ``mhmr::attention_qkv`` (CUDA: K5; CPU: :func:`mha_reference`, the JAX
+    package's path off the TPU). Recording a graph (training): CUDA
+    :func:`flash_attention_qkv` (K5 forward, K3 backward), CPU
+    :func:`mha_reference` through autograd."""
+    cuda = _dispatch(qkv, "attention_qkv")
+    if scale is None:
+        scale = qkv.shape[-1] ** -0.5
+    if not torch.is_grad_enabled():
+        return ATTENTION_QKV(qkv, scale)
+    if cuda:
         return flash_attention_qkv(qkv, scale)
-    return _merge_heads(mha_reference(*_unpack(qkv), scale))
+    return _attention_qkv_cpu(qkv, scale)

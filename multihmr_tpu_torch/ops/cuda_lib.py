@@ -46,6 +46,10 @@ NVCC_FLAGS = (
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the namespace of the kernels' operators (``torch.ops.mhmr.*``: K1 and K5 in
+# ops/attention.py, K2 in ops/norm.py)
+OP_NAMESPACE = "mhmr"
+
 # kernel name -> launches since the last reset
 LAUNCHES: collections.Counter = collections.Counter()
 

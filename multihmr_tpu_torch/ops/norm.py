@@ -14,6 +14,11 @@ multiple of 8 tokens. The plain version takes any N.
 LayerNorm backward in torch ops on both devices (``_ln_bwd`` of the JAX
 package, which wrote no kernel for it): the fp32 statistics are recomputed
 from x, so only x and the scale are saved.
+
+The forward is the operator ``torch.ops.mhmr.layernorm_cm`` (CPU: the plain
+version; CUDA: K2's wrapper; a fake implementation of shapes and dtypes), so
+the eager model and a ``torch.export`` artifact (``io/export.py``) run the
+same kernel; the autograd Function's forward calls it too.
 """
 
 from __future__ import annotations
@@ -102,12 +107,29 @@ def layernorm_cm_bwd(x, scale, g, eps: float = 1e-6):
     return dx, (gf * yhat).sum(dim=(0, 2)), gf.sum(dim=(0, 2))
 
 
+# The operator mhmr::layernorm_cm: CPU the plain version, CUDA kernel K2 (or
+# raise), and a fake implementation (shape and dtype) for torch.export.
+_LIB = torch.library.Library(cuda_lib.OP_NAMESPACE, "FRAGMENT")
+_LIB.define("layernorm_cm(Tensor x, Tensor scale, Tensor bias, float eps, "
+            "ScalarType out_dtype) -> Tensor")
+_LIB.impl("layernorm_cm", layernorm_cm_reference, "CPU")
+_LIB.impl("layernorm_cm", _layernorm_cm_cuda, "CUDA")
+
+
+@torch.library.register_fake(f"{cuda_lib.OP_NAMESPACE}::layernorm_cm", lib=_LIB)
+def _layernorm_cm_fake(x, scale, bias, eps, out_dtype):
+    if x.dim() != 3:
+        raise ValueError(f"layernorm_cm expects [B, D, N], got {tuple(x.shape)}")
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+LAYERNORM_CM = torch.ops.mhmr.layernorm_cm.default
+
+
 def _layernorm_cm_fwd(x, scale, bias, eps, out_dtype):
-    if x.device.type == "cpu":
-        return layernorm_cm_reference(x, scale, bias, eps, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"layernorm_cm: no kernel for device {x.device}")
-    return _layernorm_cm_cuda(x, scale, bias, eps, out_dtype)
+    return LAYERNORM_CM(x, scale, bias, eps, out_dtype)
 
 
 class _LayerNormCM(torch.autograd.Function):

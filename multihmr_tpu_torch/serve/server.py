@@ -18,13 +18,17 @@ and the fields the server returns are copied back into pinned buffers, all
 ``max_people`` slots (no sync to count the valid ones), followed by one CUDA
 event. ``batch_fn`` returns then; ``extract_fn`` waits on that event only
 and builds the persons from host memory, as ``extract_persons(out, fields)``
-does. The JAX server runs a single chip's batch image by image
-(``batch_mode="auto"`` → ``lax.map``); this one runs the fused batch, and a
-request's result equals the same image alone in slot 0 of the same batch.
+does. With ``forward_fn=`` an exported artifact's forward runs in place
+of the model's, on the same wire and readback (the JAX server switches to
+an fp32 wire for an artifact; this one keeps its one uint8 wire). The JAX
+server runs a single chip's batch image by image (``batch_mode="auto"`` →
+``lax.map``); this one runs the fused batch, and a request's result equals
+the same image alone in slot 0 of the same batch.
 """
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import threading
@@ -46,20 +50,25 @@ def build_batched_infer(model, max_batch: int = 8,
 
     ``fields``: restrict the device→host readback per batch (see
     ``MultiHMR.extract_persons``). Requests submit the resized uint8
-    pixels, normalized on the card. ``forward_fn`` (an exported artifact,
-    ROADMAP M10) and ``mesh`` (data-parallel serving, M11) are not
-    ported."""
+    pixels, normalized on the card. ``forward_fn``: an exported artifact,
+    ``io.export.as_model_forward(load_exported(...))``, run on its
+    ``device`` in place of ``model.forward`` (its detection parameters are
+    the artifact's); ``model`` then only reads back the persons, and its net
+    may hold no weights (``factory.build_host_model``). ``mesh``
+    (data-parallel serving, ROADMAP M11) is not ported."""
     from multihmr_tpu_torch.io.preprocessing import preprocess_array
     from multihmr_tpu_torch.ops.image import IMG_NORM_MEAN, IMG_NORM_STD
     from multihmr_tpu_torch.serve.batcher import DynamicBatcher
 
-    if forward_fn is not None:
-        raise NotImplementedError("forward_fn= (an exported artifact) is not ported yet: "
-                                  "ROADMAP M10")
     if mesh is not None:
         raise NotImplementedError("mesh= (data-parallel serving) is not ported yet: "
                                   "ROADMAP M11")
-    device = model.body_model.v_template.device
+    if forward_fn is None:
+        device = model.body_model.v_template.device
+        forward_fn = functools.partial(model.forward, det_thresh=det_thresh,
+                                       nms_kernel_size=nms_kernel_size)
+    else:
+        device = torch.device(forward_fn.device)
     cuda = device.type == "cuda"
     mean = torch.from_numpy(IMG_NORM_MEAN).to(device)
     std = torch.from_numpy(IMG_NORM_STD).to(device)
@@ -72,9 +81,7 @@ def build_batched_infer(model, max_batch: int = 8,
         # the worker thread's own grad mode: it does not inherit the caller's
         with torch.inference_mode():
             x = (upload(x).float() / 255.0 - mean) / std  # the u8 wire, normalized here
-            out = model.forward(x, upload(K), det_thresh=det_thresh,
-                                nms_kernel_size=nms_kernel_size)
-            return model.start_persons(out, fields)
+            return model.start_persons(forward_fn(x, upload(K)), fields)
 
     def extract_fn(pending, n_valid):
         return pending.persons()[:n_valid]  # waits on the batch's event only

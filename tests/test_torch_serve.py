@@ -10,10 +10,13 @@ The tiny model is tests/test_torch_model.py's: ``TinyConfig`` (ViT 32 wide,
 ``params_from_jax``. The two servers' JSON persons are held to that test's
 ``TOLS["tempered"]`` (relative to each field's largest magnitude) with
 equal counts; ``transl_pelvis`` to the joints' (j3d) tolerance.
+``cli/serve.py --artifact`` serves an artifact that
+``tools/export_model.py`` exports on the CPU from the tiny configuration.
 """
 
 import io
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -346,8 +349,7 @@ def test_wire_dtype_mismatch_rejected(model):
             batcher.close()
 
 
-@pytest.mark.parametrize("kw,match", [({"mesh": object()}, "M11"),
-                                      ({"forward_fn": lambda *a: None}, "M10")])
+@pytest.mark.parametrize("kw,match", [({"mesh": object()}, "M11")])
 def test_unported_server_options_raise(model, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         build_batched_infer(model, **kw)
@@ -553,15 +555,100 @@ def test_serve_cli_on_the_cpu(tiny_factory):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--dp"], NotImplementedError, "M11"),
-    (["--artifact", "exported/672B"], NotImplementedError, "M10"),
+    (["--artifact", "exported/672B", "--dp"], NotImplementedError, "M11"),
     (["--model_name", "multiHMR_672_L_anny", "--device", "cpu"], ValueError, "Anny"),
     ([], RuntimeError, "no CUDA card"),
 ])
 def test_serve_cli_refusals(flags, error, match, monkeypatch):
-    """Unported flags and an Anny name raise at start; so does --device cuda
-    without a card (no quiet CPU serving)."""
+    """Unported flags (``--dp``, also beside ``--artifact``) and an Anny name
+    raise at start; so does --device cuda without a card (no quiet CPU
+    serving)."""
     from multihmr_tpu_torch.cli import serve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(error, match=match):
         serve.build_server(serve.parse_args(flags))
+
+
+# ---- cli/serve.py --artifact (a tools/export_model.py artifact, io/export.py)
+
+@pytest.fixture
+def artifact(tiny_factory, tmp_path):
+    """A tiny multiHMR_672_B artifact exported on the CPU at batch 2 with
+    det_thresh 0 by ``tools/export_model.py``."""
+    from multihmr_tpu_torch.tools import export_model
+
+    return export_model.main(["--model_name", "multiHMR_672_B", "--out", str(tmp_path / "a"),
+                              "--batch", "2", "--det_thresh", "0.0", "--device", "cpu"])
+
+
+def test_serve_cli_artifact_answers(artifact):
+    """The server takes the batch, the detection parameters and the weights
+    from the artifact and answers a request."""
+    from multihmr_tpu_torch.cli import serve
+
+    args = serve.parse_args(["--artifact", artifact, "--device", "cpu", "--port", "0"])
+    srv, batcher = serve.build_server(args)
+    port = _serve(srv)
+    try:
+        with _post(port, _png(np.zeros((40, 48, 3), np.uint8))) as r:
+            assert json.load(r)["count"] == 3
+        assert batcher.max_batch == args.max_batch == 2 and args.det_thresh == 0.0
+        assert batcher.stats.snapshot()["requests"] == 1
+    finally:
+        srv.shutdown()
+        batcher.close()
+
+
+@pytest.mark.parametrize("name,match", [("tiny", "re-export"),
+                                        ("multiHMR_672_L_anny", "Anny")])
+def test_serve_cli_artifact_name_refused(artifact, name, match):
+    """An artifact whose meta name is not a known configuration is refused
+    with a hint to re-export; an Anny artifact as an Anny name is."""
+    from multihmr_tpu_torch.cli import serve
+
+    meta_path = os.path.join(artifact, "meta.json")
+    meta = dict(json.load(open(meta_path)), name=name)
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(ValueError, match=match):
+        serve.build_server(serve.parse_args(["--artifact", artifact, "--device", "cpu"]))
+
+
+def test_serve_cli_artifact_warns_on_ignored_flags(artifact, capsys):
+    from multihmr_tpu_torch.cli import serve
+
+    args = serve.parse_args(["--artifact", artifact, "--device", "cpu", "--port", "0",
+                             "--det_thresh", "0.5", "--nms_kernel_size", "5",
+                             "--ckpt", "multiHMR_672_B.pt"])
+    srv, batcher = serve.build_server(args)
+    srv.server_close()
+    batcher.close()
+    err = capsys.readouterr().err
+    for line in ("--det_thresh=0.5 ignored — the artifact bakes det_thresh=0.0",
+                 "--nms_kernel_size=5 ignored — the artifact bakes nms_kernel_size=3",
+                 "--max_batch=8 ignored — the artifact bakes batch_size=2",
+                 "--ckpt ignored — weights come from the artifact"):
+        assert line in err, err
+
+
+def test_serve_cli_artifact_builds_no_second_net(artifact, monkeypatch):
+    """The artifact holds the weights: serving it builds no model with
+    weights (``factory.build_model`` and ``init_weights`` are never called)
+    and the host model's ViT is on the meta device."""
+    import multihmr_tpu_torch.factory as factory
+    from multihmr_tpu_torch.cli import serve
+
+    def refuse(*a, **kw):
+        raise AssertionError("a second net was built")
+
+    hosts = []
+    monkeypatch.setattr(factory, "build_model", refuse)
+    monkeypatch.setattr(MultiHMRNet, "init_weights", refuse)
+    monkeypatch.setattr(factory, "build_host_model",
+                        lambda name, f=factory.build_host_model: hosts.append(f(name)) or hosts[0])
+    srv, batcher = serve.build_server(serve.parse_args(["--artifact", artifact, "--device",
+                                                        "cpu", "--port", "0"]))
+    srv.server_close()
+    batcher.close()
+    assert all(p.is_meta for p in hosts[0].net.backbone.parameters())
