@@ -155,7 +155,27 @@ served from the artifact. Phases, one line each:
      beside phase 18's figures, and
      ``memory_allocated`` after start against a live server's; (e)
      ``multiHMR_672_L_anny`` at batch 1 on heads: the artifact against the
-     live forward and 24 K1 + 48 K2 launches.
+     live forward and 24 K1 + 48 K2 launches;
+ 20. the host pieces of the single-card user's path: (a) a probe that
+     compiles a file including jpeglib.h and png.h linked with -ljpeg
+     -lpng, then the build of ``csrc/image_io.cpp``; JPEG and PNG files at
+     five sizes decoded against PIL (mean |d| < 1.5 levels) and
+     preprocessed at S = 896, 672 and 674 against PIL contain + pad +
+     normalize and ``preprocess_array`` (max |d| < 0.018, mean < 1e-3),
+     ``NativeImageLoader`` bitwise equal to ``preprocess_file``, a bad path
+     giving -1, and host times (``preprocess_file`` against the PIL path,
+     the loader's images/s at 1 thread and at all CPUs); (b) ``cli/demo.py``
+     ``multiHMR_896_L`` over 8 JPEGs in turns with the PIL loop it replaced:
+     ``"loader": "native"`` exactly when the probe compiles, each image's
+     JSON bitwise equal to a forward of its ``preprocess_file`` tensor, 24
+     K1 + 48 K2 per image, p50 ms per image of each; (c) flax-layout
+     ``ckpt_000000.msgpack`` files of the JAX tree of phase 15's seeded
+     896_L and 672_S reference files: ``load_jax_checkpoint`` bitwise equal
+     to the ``.pt`` route, and ``cli/train.py --eval_only 1 --pretrained``
+     of each 672_S file with bitwise equal metrics; (d) ``cli/data.py``
+     ``create_jpeg``, ``create_annots``, ``dataloader`` and ``visualize``
+     on seeded BEDLAM and EHF trees (GT vertices on the card within 1e-4 m
+     of the CPU's).
 
 Then a JSON line of the kernels (each with ``artifact_launches``, its
 launches per 672_B batch through phase 19's artifacts), the nvidia-smi
@@ -169,6 +189,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -1108,18 +1129,25 @@ def self_consistent_ehf(ckpt, tp_mode):
     """Rewrite the EHF tree's GT meshes as the checkpoint's own first
     person on each image (through the EHF camera, back into its world
     frame): evaluating that checkpoint must then match every GT person."""
-    from pathlib import Path
-
     from multihmr_tpu_torch.config import ModelConfig
-    from multihmr_tpu_torch.data import ehf as ehf_mod
     from multihmr_tpu_torch.factory import build_model
     from multihmr_tpu_torch.io.checkpoint import load_checkpoint
 
     cfg = ModelConfig(backbone="dinov2_vitl14", img_size=896, max_people=8)  # the CLI's
     model = build_model(device="cuda", cfg=cfg, tp_mode=tp_mode)
     model.net.load_state_dict(load_checkpoint(ckpt)[0])
+    ehf_gt_from(model)
+
+
+def ehf_gt_from(model):
+    """Rewrite the EHF tree's GT meshes as ``model``'s first person on each
+    image, at its image size."""
+    from pathlib import Path
+
+    from multihmr_tpu_torch.data import ehf as ehf_mod
+
     R = ehf_mod._rotvec_to_rotmat_np(ehf_mod.EHF_CAM_ROTVEC)
-    ds = ehf_mod.EHF(img_size=896)
+    ds = ehf_mod.EHF(img_size=model.cfg.img_size)
     for i in range(len(ds)):
         x, annot = ds[i]
         with torch.inference_mode():
@@ -1312,6 +1340,99 @@ def write_reference_ckpt(path, name, seed=0):
     args = argparse.Namespace(backbone=cfg.backbone, img_size=[cfg.img_size])
     torch.save({"model_state_dict": reference_state_dict(cfg, seed), "args": args}, path)
     return os.path.getsize(path), time.perf_counter() - t0
+
+
+# ---- the JAX package's own checkpoints (flax msgpack), for phase 20 (c) ----
+
+
+def _mp_len(n, fix, fix_max, codes):
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    8/16/32-bit code (None where msgpack has no 8-bit form)."""
+    if n < fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _mp_int(v):
+    if -0x20 <= v < 0x80:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    for code, fmt, lo, hi in ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+                              (0xCE, ">I", 0, 0xFFFFFFFF), (0xCF, ">Q", 0, 2**64 - 1),
+                              (0xD0, ">b", -0x80, -1), (0xD1, ">h", -0x8000, -1),
+                              (0xD2, ">i", -2**31, -1), (0xD3, ">q", -2**63, -1)):
+        if lo <= v <= hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"msgpack: int {v} out of range")
+
+
+def _mp_str(v):
+    b = v.encode()
+    return _mp_len(len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + b
+
+
+def _mp_ndarray(a, code):
+    """flax's ext: ``packb((shape, dtype name, C-order bytes))``."""
+    data = np.ascontiguousarray(a).tobytes()
+    inner = (_mp_len(3, 0x90, 16, (None, 0xDC, 0xDD)) + _mp_len(a.ndim, 0x90, 16, (None, 0xDC, 0xDD))
+             + b"".join(_mp_int(int(d)) for d in a.shape) + _mp_str(a.dtype.name)
+             + _mp_len(len(data), 0, 0, (0xC4, 0xC5, 0xC6)))
+    n = len(inner) + len(data)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixext[n]]) if n in fixext else _mp_len(n, 0, 0, (0xC7, 0xC8, 0xC9))
+    return [head + bytes([code]) + inner, data]
+
+
+def flax_msgpack_parts(obj):
+    """The bytes of ``flax.serialization.to_bytes(obj)``, in parts (the
+    arrays' data as separate parts), for a tree of dicts, lists, tuples,
+    numpy arrays and scalars, str, bytes, int, float, bool and None: a
+    writer of the JAX package's checkpoint layout without flax or msgpack.
+    Lists and tuples become maps keyed "0", "1", ... as flax's state dicts
+    make them; a leaf over flax's 2**30-byte chunk size raises."""
+    if isinstance(obj, (list, tuple)):
+        obj = {str(i): v for i, v in enumerate(obj)}
+    if isinstance(obj, dict):
+        parts = [_mp_len(len(obj), 0x80, 16, (None, 0xDE, 0xDF))]
+        for k, v in obj.items():
+            parts.append(_mp_str(str(k)))
+            parts += flax_msgpack_parts(v)
+        return parts
+    if isinstance(obj, np.ndarray):
+        if obj.nbytes > 2**30:
+            raise ValueError("a leaf over flax's chunk size: not written here")
+        return _mp_ndarray(obj, 1)
+    if isinstance(obj, np.generic):
+        return _mp_ndarray(np.asarray(obj), 3)
+    if obj is None:
+        return [b"\xc0"]
+    if isinstance(obj, bool):
+        return [b"\xc3" if obj else b"\xc2"]
+    if isinstance(obj, int):
+        return [_mp_int(obj)]
+    if isinstance(obj, float):
+        return [b"\xcb" + struct.pack(">d", obj)]
+    if isinstance(obj, str):
+        return [_mp_str(obj)]
+    if isinstance(obj, bytes):
+        return [_mp_len(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)), obj]
+    raise TypeError(f"flax msgpack: cannot write {type(obj).__name__}")
+
+
+def write_flax_checkpoint(ckpt_dir, tree, epoch, cfg):
+    """What the JAX package's ``save_checkpoint`` writes: ``ckpt_{epoch:06d}
+    .msgpack`` (flax ``to_bytes`` of ``tree``) and its ``.json``; returns
+    the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"ckpt_{epoch:06d}.msgpack")
+    with open(path, "wb") as f:
+        for part in flax_msgpack_parts(tree):
+            f.write(part)
+    with open(os.path.join(ckpt_dir, f"ckpt_{epoch:06d}.json"), "w") as f:
+        json.dump({"epoch": epoch, "config": dataclasses.asdict(cfg)}, f)
+    return path
 
 
 def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attention,
@@ -3009,6 +3130,459 @@ def run_export(build_model, cast_backbone_bf16, cuda_lib, attention, norm, card,
     return figures
 
 
+# ---- phase 20: the image library, the demo's loader, the JAX package's
+# checkpoints and cli/data
+
+# the phase's image sizes (h, w): landscape and portrait photos, EHF's
+# 1600 x 1200, and the odd-pad and .5-tie cases of tests/test_native.py
+IO_SIZES = [(720, 1280), (1200, 1600), (1280, 720), (1000, 1024), (250, 1000)]
+IO_TARGETS = (896, 672, 674)
+# native preprocessing against PIL contain + pad + normalize: one uint8
+# level (1/255/0.225 = 0.0174) on a few values, tests/test_native.py:51, :78-79
+IO_MAX, IO_MEAN = 0.018, 1e-3
+# JPEG decoders round their IDCTs apart: mean |decode - PIL| in uint8 levels
+DECODE_MEAN = 1.5
+# visualize's GT vertices, card against CPU (fp32, TF32 off), metres
+VIS_TOL = 1e-4
+PROBE_CPP = ("#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+             "int main() { jpeg_decompress_struct c; (void)c;\n"
+             "  return png_access_version_number() > 0 ? 0 : 1; }\n")
+
+
+def error_line(text: str) -> str:
+    """The compiler's first "error" line of ``text``, else its last line."""
+    lines = [ln.strip() for ln in text.strip().splitlines()] or ["(no output)"]
+    return next((ln for ln in lines if "error" in ln), lines[-1])
+
+
+def codec_probe(tmp):
+    """Compile, link and run a program that includes jpeglib.h and png.h and
+    links -ljpeg -lpng: (ok, the compiler's last line)."""
+    from multihmr_tpu_torch.io import native
+
+    src, exe = os.path.join(tmp, "codec_probe.cpp"), os.path.join(tmp, "codec_probe")
+    with open(src, "w") as f:
+        f.write(PROBE_CPP)
+    proc = subprocess.run([native._cxx(native.IMAGE_IO_SOURCE), "-std=c++17", src, "-o", exe,
+                           *native.IMAGE_IO_LIBS], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return False, error_line(proc.stderr)
+    run = subprocess.run([exe], capture_output=True, text=True)
+    return run.returncode == 0, f"compiled, linked and ran (rc {run.returncode})"
+
+
+def write_io_images(d):
+    """JPEG and PNG files of IO_SIZES: [(path, (h, w))]."""
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    out = []
+    for i, (h, w) in enumerate(IO_SIZES):
+        img = Image.fromarray(synthetic_image(400 + i, h, w))
+        for ext in ("jpg", "png"):
+            path = os.path.join(d, f"{h}x{w}.{ext}")
+            img.save(path, quality=90) if ext == "jpg" else img.save(path)
+            out.append((path, (h, w)))
+    return out
+
+
+def io_library(card, tmp):
+    """(a) the codec probe, the build of csrc/image_io.cpp, its decode,
+    preprocess and loader against PIL and the port's preprocess_array, and
+    its host times. Returns (probe ok, figures or None)."""
+    from PIL import Image, ImageOps
+
+    from multihmr_tpu_torch.io import native
+    from multihmr_tpu_torch.io.preprocessing import normalize_nhwc, preprocess_array
+
+    cpu = host_cpu()
+    ok, msg = codec_probe(tmp)
+    log(20, f"(a) libjpeg/libpng probe: {'compiles' if ok else 'FAILS'}: {msg} [{card}; {cpu}]")
+    try:
+        so, secs = native.build_image_io()
+        native._load_image_io()
+    except (RuntimeError, OSError) as err:
+        if ok:
+            raise AssertionError("the codec probe compiles but csrc/image_io.cpp does not "
+                                 "build or load") from err
+        log(20, f"(a) csrc/image_io.cpp does not build or load here, as the probe says "
+                f"({error_line(str(err))}): the image library's figures are not available "
+                f"[{card}; {cpu}]")
+        return False, None
+    if not ok:
+        raise AssertionError("csrc/image_io.cpp built and loaded where the codec probe fails")
+    log(20, f"(a) csrc/image_io.cpp built in {secs:.2f} s ({so.name}) [{card}; {cpu}]")
+    files = write_io_images(os.path.join(tmp, "io_images"))
+    worst, good = {"decode": 0.0, "pil": (0.0, 0.0), "array": (0.0, 0.0)}, True
+    for path, _ in files:
+        pil = Image.open(path).convert("RGB")
+        rgb = np.asarray(pil)
+        d = float(np.mean(np.abs(native.decode_file(path).astype(int) - rgb.astype(int))))
+        worst["decode"] = max(worst["decode"], d)
+        good = good and d < DECODE_MEAN
+        for S in IO_TARGETS:
+            ours = native.preprocess_file(path, S)
+            refs = {"pil": normalize_nhwc(np.asarray(
+                        ImageOps.pad(ImageOps.contain(pil, (S, S)), size=(S, S)))),
+                    "array": preprocess_array(rgb, S).x}
+            for k, ref in refs.items():
+                e = np.abs(ours - ref)
+                worst[k] = (max(worst[k][0], float(e.max())), max(worst[k][1], float(e.mean())))
+                good = good and e.max() < IO_MAX and e.mean() < IO_MEAN
+    log(20, f"(a) {len(files)} files x S {IO_TARGETS}: decode mean |d| <= {worst['decode']:.3f} "
+            f"levels (< {DECODE_MEAN}); preprocess_file vs PIL contain+pad+normalize max "
+            f"{worst['pil'][0]:.4f} mean {worst['pil'][1]:.2e}, vs preprocess_array max "
+            f"{worst['array'][0]:.4f} mean {worst['array'][1]:.2e} (limits {IO_MAX}, {IO_MEAN:g}) "
+            f"[{card}] {'ok' if good else 'FAIL'}")
+    paths = [p for p, _ in files]
+    same = True
+    for S in IO_TARGETS:
+        with native.NativeImageLoader(paths, S, n_threads=4, max_queue=2) as loader:
+            got = dict(loader)
+        same = same and sorted(got) == list(range(len(paths))) and all(
+            np.array_equal(got[i], native.preprocess_file(p, S)) for i, p in enumerate(paths))
+    with native.NativeImageLoader([os.path.join(tmp, "no_such.jpg")], 64) as loader:
+        bad = [i for i, _ in loader]
+    log(20, f"(a) NativeImageLoader at S {IO_TARGETS}: every index, bitwise preprocess_file "
+            f"{'ok' if same else 'FAIL'}; a bad path gives {bad} (want [-1]) [{card}]")
+    good = good and same and bad == [-1]
+    # host times at 896: one 1280 x 720 JPEG, one thread, median of 20
+    jpg = files[0][0]
+    ms_native = wall_ms(lambda: native.preprocess_file(jpg, 896), reps=20)
+    ms_pil = wall_ms(lambda: preprocess_array(
+        np.asarray(Image.open(jpg).convert("RGB")), 896), reps=20)
+    rgb = np.asarray(Image.open(jpg).convert("RGB"))
+    ms_array = wall_ms(lambda: preprocess_array(rgb, 896), reps=20)
+    rates = {}
+    many = [p for p in paths if p.endswith(".jpg")] * 13  # 65 JPEGs of the five sizes
+    many = many[:64]
+    for n_threads in (1, os.cpu_count()):
+        t0 = time.perf_counter()
+        with native.NativeImageLoader(many, 896, n_threads=n_threads) as loader:
+            n = sum(1 for i, _ in loader if i >= 0)
+        rates[n_threads] = n / (time.perf_counter() - t0)
+    log(20, f"(a) host ms per 1280x720 JPEG at 896 (median of 20, one thread): preprocess_file "
+            f"{ms_native:.2f}, PIL decode + preprocess_array {ms_pil:.2f} (preprocess_array "
+            f"alone {ms_array:.2f}); NativeImageLoader over 64 JPEGs at 896: "
+            + ", ".join(f"{k} thread(s) {v:.1f} images/s" for k, v in rates.items())
+            + f" [{card}; {cpu}]")
+    if not good:
+        raise AssertionError("(a) the image library disagrees with PIL")
+    return True, {"build_s": secs, "ms_native": ms_native, "ms_pil": ms_pil, "rates": rates}
+
+
+def pil_demo_loop(demo, model, paths, out_dir, count):
+    """The demo's loop before the native loader: PIL decode and
+    preprocess_array on the main thread, one stage in flight through
+    start_image / finish_image; returns its p50 ms per image."""
+    from PIL import Image
+
+    periods, pending, t_prev = [], None, time.perf_counter()
+    for i in range(len(paths) + 1):
+        nxt = None
+        if i < len(paths):
+            img = np.asarray(Image.open(paths[i]).convert("RGB"))
+            nxt = (i, img, count(model, img)[1])
+        if pending is not None:
+            j, img_j, persons = pending
+            persons.wait()
+            demo.finish_image(model, persons, img_j, os.path.basename(paths[j]), out_dir, "pil")
+            t = time.perf_counter()
+            periods.append(t - t_prev)
+            t_prev = t
+        pending = nxt
+    return 1000 * float(np.median(periods))
+
+
+def demo_loaders(build_model, demo, cast_backbone_bf16, cuda_lib, names, card, tmp, native_ok):
+    """(b) cli/demo.py multiHMR_896_L over 8 JPEGs (its overlay writer
+    swapped out: phase 18 (h) draws them, and the synthetic body's random
+    faces would set the pace), in turns with the PIL loop it replaced:
+    the loader the summary names, each image's JSON against a forward of
+    its preprocess_file tensor, 24 K1 + 48 K2 per image, p50 ms per image."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from multihmr_tpu_torch.io import native
+
+    src = os.path.join(tmp, "loader_in")
+    os.makedirs(src)
+    sizes = [(720, 1280), (480, 640), (1200, 1600), (1280, 720), (640, 480), (1080, 1920),
+             (896, 896), (600, 800)]
+    for i, (h, w) in enumerate(sizes):
+        Image.fromarray(synthetic_image(500 + i, h, w)).save(os.path.join(src, f"im{i}.jpg"),
+                                                             quality=90)
+    paths = sorted(os.path.join(src, f) for f in os.listdir(src))
+    per_image, start_image = [], demo.start_image
+
+    def counted(model, *args, **kwargs):
+        before = dict(cuda_lib.LAUNCHES)
+        res = start_image(model, *args, **kwargs)
+        per_image.append(tuple(cuda_lib.LAUNCHES[k] - before.get(k, 0) for k in names))
+        return res
+
+    model = build_model("multiHMR_896_L", device="cuda", seed=0)  # the demo's weights
+    cast_backbone_bf16(model.net)
+    write_overlays = demo._write_overlays
+    p50 = {"demo": [], "pil": []}
+    loaders, ok = set(), True
+    demo._write_overlays = lambda *a, **kw: None
+    try:
+        for turn, kind in enumerate(("demo", "pil", "pil", "demo")):
+            out = os.path.join(tmp, f"loader_out{turn}")
+            os.makedirs(out)
+            per_image.clear()
+            cuda_lib.reset_launches()  # this run starts here
+            if kind == "demo":
+                buf = io.StringIO()
+                demo.start_image = counted
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        demo.main(["--img_folder", src, "--out_folder", out,
+                                   "--model_name", "multiHMR_896_L"])
+                finally:
+                    demo.start_image = start_image
+                summary = json.loads(buf.getvalue().splitlines()[-1])
+                loaders.add(summary["loader"])
+                p50["demo"].append(summary["p50_image_ms"])
+            else:
+                p50["pil"].append(pil_demo_loop(demo, model, paths, out, counted))
+            good = len(per_image) == 8 and all(c == (24, 48, 0) for c in per_image)
+            log(20, f"(b) turn {turn}, {'cli/demo' if kind == 'demo' else 'PIL loop'}: launches "
+                    f"K1/K2/K5 per image {sorted(set(per_image))} (want (24, 48, 0)) x "
+                    f"{len(per_image)} [{card}] {'ok' if good else 'FAIL'}")
+            ok = ok and good
+        # each image's JSON from the demo's last turn against a forward of
+        # its preprocess_file tensor (the PIL path's preprocess_array when
+        # the image library is unavailable) on the same weights
+        ref = os.path.join(tmp, "loader_ref")
+        os.makedirs(ref)
+        equal = 0
+        for path in paths:
+            name = os.path.basename(path)
+            if native_ok:
+                x = native.preprocess_file(path, model.cfg.img_size)
+                _, persons = start_image(model, None, x=x)
+            else:
+                _, persons = start_image(model, np.asarray(Image.open(path).convert("RGB")))
+            demo.finish_image(model, persons, None, name, ref, "multiHMR_896_L")
+            got = json.load(open(os.path.join(tmp, "loader_out3", f"{name}_multiHMR_896_L.json")))
+            want = json.load(open(os.path.join(ref, f"{name}_multiHMR_896_L.json")))
+            equal += got == want and len(got["persons"]) > 0
+    finally:
+        demo._write_overlays = write_overlays
+        demo.start_image = start_image
+    want_loader = "native" if native_ok else "pil"
+    ok = ok and loaders == {want_loader} and equal == len(paths)
+    log(20, f"(b) cli/demo multiHMR_896_L, 8 JPEGs: loader {sorted(loaders)} (want "
+            f"{want_loader}: the codec probe {'compiles' if native_ok else 'fails'}); JSON "
+            f"bitwise equal to a forward of {'preprocess_file' if native_ok else 'preprocess_array'}"
+            f" on {equal} of {len(paths)} images; p50 ms per image, turns demo / PIL / PIL / demo: "
+            f"cli/demo ({want_loader}) {' / '.join(f'{v:.1f}' for v in p50['demo'])}, PIL loop "
+            f"{' / '.join(f'{v:.1f}' for v in p50['pil'])} [{card}; {host_cpu()}] "
+            f"{'ok' if ok else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("(b) the demo's loader check failed")
+    return {k: float(np.mean(v)) for k, v in p50.items()}
+
+
+def jax_checkpoints(named_config, cuda_lib, names, card, tmp, ref_paths):
+    """(c) flax-layout ckpt_000000.msgpack files of the JAX tree that
+    convert_reference_checkpoint builds from phase 15's seeded reference
+    files (896_L and 672_S, full width): load_jax_checkpoint bitwise equal
+    to the .pt route; then cli/train --eval_only --pretrained of the 672_S
+    msgpack against the .pt, metrics bitwise equal."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from multihmr_tpu_torch.cli import train as train_cli
+    from multihmr_tpu_torch.io import flax_msgpack
+    from multihmr_tpu_torch.io.checkpoint import (
+        convert_reference_checkpoint,
+        jax_tree_from_reference,
+        load_jax_checkpoint,
+    )
+
+    msgpacks, ok = {}, True
+    for name in ("multiHMR_896_L", "multiHMR_672_S"):
+        cfg = named_config(name)
+        pt = ref_paths.get(name) if ref_paths else None
+        if pt is None:  # phase 15 did not leave it
+            pt = os.path.join(tmp, f"{name}.pt")
+            write_reference_ckpt(pt, name)
+        ckpt = torch.load(pt, map_location="cpu", weights_only=False)
+        want = convert_reference_checkpoint(ckpt, cfg)  # the .pt route
+        t0 = time.perf_counter()
+        path = write_flax_checkpoint(os.path.join(tmp, f"jax_{name}"), jax_tree_from_reference(
+            ckpt, cfg), 0, cfg)
+        t_write = time.perf_counter() - t0
+        del ckpt
+        t0 = time.perf_counter()
+        flax_msgpack.load(path)
+        t_decode = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, meta = load_jax_checkpoint(path, cfg)
+        t_load = time.perf_counter() - t0
+        same = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+        log(20, f"(c) {name} ckpt_000000.msgpack: {os.path.getsize(path) / 2**20:.1f} MiB written "
+                f"in {t_write:.2f} s; decode {t_decode:.2f} s, load_jax_checkpoint (decode + "
+                f"params_from_jax) {t_load:.2f} s; {len(got)} tensors bitwise equal to the .pt "
+                f"route: {same}; meta epoch {meta['epoch']} [{card}; {host_cpu()}] "
+                f"{'ok' if same else 'FAIL'}")
+        ok = ok and same and meta["epoch"] == 0
+        msgpacks[name] = (path, pt)
+        del got, want
+    # the training CLI on the card, --eval_only on the seeded EHF tree with
+    # the 672_S weights' own first person as its GT (recall 100, PA-PVE ~0)
+    cwd = os.getcwd()
+    run = os.path.join(tmp, "jax_cli")
+    os.makedirs(run)
+    metrics = {}
+    try:
+        os.chdir(run)
+        write_datasets(Path(run))
+        from multihmr_tpu_torch.factory import build_model
+
+        model = build_model("multiHMR_672_S", device="cuda",  # the CLI's config at --amp 1
+                            checkpoint=msgpacks["multiHMR_672_S"][1])
+        ehf_gt_from(model)
+        del model
+        for tag, path in zip(("msgpack", "pt"), msgpacks["multiHMR_672_S"]):
+            argv = ["--backbone", "dinov2_vits14", "--img_size", "672", "--n_devices", "1",
+                    "--eval_only", "1", "--valset", "ehf", "--pretrained", path, "--name", tag]
+            buf = io.StringIO()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(argv)
+            secs = time.perf_counter() - t0
+            recs = [json.loads(ln) for ln in open(os.path.join("logs", tag, "metrics.jsonl"))]
+            metrics[tag] = {r["tag"]: r["value"] for r in recs}
+            log(20, f"(c) cli.train --pretrained {os.path.basename(path)} --eval_only 1 (672_S, "
+                    f"EHF, 2 images) in {secs:.1f} s: " + ", ".join(
+                        f"{k.split('/')[1]} {v:.6g}" for k, v in metrics[tag].items())
+                    + f"; K1/K2/K5 launches {tuple(cuda_lib.LAUNCHES[k] for k in names)} [{card}]")
+    finally:
+        os.chdir(cwd)
+    pt = metrics["pt"]
+    same = (metrics["msgpack"] == pt and all(np.isfinite(v) for v in pt.values())
+            and pt["ehf-test-1/recall"] == 100.0 and pt["ehf-test-1/pa_pve"] < 1.0)
+    log(20, f"(c) --pretrained .msgpack metrics bitwise equal to the .pt route's, recall 100 "
+            f"and PA-PVE < 1 mm on GT made from those weights: {same} [{card}] "
+            f"{'ok' if same else 'FAIL'}")
+    if not (ok and same):
+        raise AssertionError("(c) the JAX checkpoint check failed")
+
+
+def cli_data(card, tmp):
+    """(d) cli/data on the seeded BEDLAM and EHF trees: create_jpeg,
+    create_annots, dataloader, and visualize on the card against the CPU."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from PIL import Image
+
+    import multihmr_tpu_torch.render as render
+    from multihmr_tpu_torch.cli import data as data_cli
+
+    def run(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            data_cli.main(argv)
+        lines = buf.getvalue().splitlines()
+        log(20, f"(d) cli.data {' '.join(argv)} ({time.perf_counter() - t0:.2f} s): "
+                + (lines[-1] if lines else "") + f" [{card}; {host_cpu()}]")
+        return lines
+
+    cwd, root = os.getcwd(), os.path.join(tmp, "data_cli")
+    os.makedirs(root)
+    seen, real = [], render.render_meshes
+    ok = True
+    try:
+        os.chdir(root)
+        write_datasets(Path(root))
+        run(["create_jpeg", "--root_dir", "data", "--target_size", "512"])
+        jpgs = sorted(str(p) for p in Path("data").rglob("*_512.jpg"))
+        sizes = sorted({Image.open(p).size for p in jpgs})
+        good = len(jpgs) == 8 and sizes == [(512, 288), (512, 384)]
+        log(20, f"(d) create_jpeg: {len(jpgs)} JPEGs, sizes {sizes} (want 8, [(512, 288), "
+                f"(512, 384)]) [{card}] {'ok' if good else 'FAIL'}")
+        ok = ok and good
+        for ds in ("bedlam", "ehf"):
+            lines = run(["create_annots", "--dataset", ds])
+            ok = ok and any("built annotations" in ln for ln in lines)
+        lines = run(["dataloader", "--dataset", "bedlam", "--n", "4"])
+        ok = ok and "2 samples in" in lines[-1]
+
+        def spy(img, l_mesh, *a, **kw):
+            seen.append([np.asarray(m, np.float64) for m in l_mesh])
+            return real(img, l_mesh, *a, **kw)
+
+        render.render_meshes = spy
+        for ds, humans in (("ehf", 1), ("bedlam", 3)):
+            verts = {}
+            for dev in ("cuda", "cpu"):
+                seen.clear()
+                lines = run(["visualize", "--dataset", ds, "--device", dev])
+                shape = np.asarray(Image.open(f"{ds}_vis_0.png")).shape
+                verts[dev] = seen[0]
+                good = (f"({humans} humans)" in lines[-1] and shape == (512, 1024, 3)
+                        and len(seen[0]) == humans)
+                ok = ok and good
+            err = max(float(np.abs(a - b).max()) for a, b in zip(verts["cuda"], verts["cpu"]))
+            good = err <= VIS_TOL
+            log(20, f"(d) visualize {ds}: PNG {shape}, {humans} humans; GT vertices --device cuda "
+                    f"vs cpu max |d| {err:.2e} m (tol {VIS_TOL:g}) [{card}] "
+                    f"{'ok' if good else 'FAIL'}")
+            ok = ok and good
+    finally:
+        render.render_meshes = real
+        os.chdir(cwd)
+    if not ok:
+        raise AssertionError("(d) cli/data failed")
+
+
+def run_io(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attention, norm, card,
+           tmp, ref_paths):
+    """Phase 20: (a) the image library, (b) the demo with each loader, (c)
+    the JAX package's checkpoints, (d) cli/data. Every part runs; the phase
+    fails at its end if any did."""
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    failed, figures = [], {}
+
+    def part(tag, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        except Exception:
+            failed.append(tag)
+            log(20, f"({tag}) FAIL\n" + traceback.format_exc())
+            return None
+        finally:
+            log(20, f"({tag}) took {time.perf_counter() - t0:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    lib = part("a", io_library, card, tmp)
+    native_ok, figures["a"] = lib if lib else (codec_probe(tmp)[0], None)
+    figures["b"] = part("b", demo_loaders, build_model, demo, cast_backbone_bf16, cuda_lib,
+                        names, card, tmp, native_ok)
+    torch.cuda.empty_cache()
+    part("c", jax_checkpoints, named_config, cuda_lib, names, card, tmp, ref_paths)
+    torch.cuda.empty_cache()
+    part("d", cli_data, card, tmp)
+    log(20, f"phase 20 took {time.perf_counter() - t0:.1f} s [{card}]")
+    if failed:
+        raise AssertionError(f"phase 20 parts failed: {failed}")
+    return figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3080,10 +3654,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         exported = phase(19, run_export, build_model, cast_backbone_bf16, cuda_lib, attention,
                          norm, card, tmp, serving and serving["sat"])
+        torch.cuda.empty_cache()
+        io_figures = phase(20, run_io, build_model, named_config, demo, cast_backbone_bf16,
+                           cuda_lib, attention, norm, card, tmp, ref and ref[0])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref, anny, serving, exported):
+                          cli_launches, ref, anny, serving, exported, io_figures):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
@@ -3121,6 +3698,15 @@ def main() -> int:
                f"{exported['c']['fwd']['live'][1]:.2f} / artifact "
                f"{exported['c']['fwd']['artifact'][1]:.2f} ms; artifact server "
                f"{exported['d']['sat']['full']['img_s']:.2f} images/s [{card}]")
+    lib = io_figures["a"]
+    log("end", "image library: " + ("not available (the libjpeg/libpng probe fails)" if lib is None
+                                    else f"preprocess_file {lib['ms_native']:.2f} ms against PIL "
+                                    f"decode + preprocess_array {lib['ms_pil']:.2f} ms per 1280x720 "
+                                    f"JPEG at 896; loader " + ", ".join(
+                                        f"{k} thread(s) {v:.1f} images/s"
+                                        for k, v in lib["rates"].items()))
+               + f"; demo p50 {io_figures['b']['demo']:.1f} ms per image against the PIL loop's "
+               f"{io_figures['b']['pil']:.1f} [{card}; {host_cpu()}]")
     # launches per batch through the 672_B artifacts (phase 19 (a)): K1 and
     # K2 on heads, K5 on ring; the backward kernels are not in an export
     artifact_launches = {attention.KERNEL: ex["heads"]["launches"][0],

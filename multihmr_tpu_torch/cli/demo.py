@@ -26,8 +26,18 @@ files). :func:`start_image` enqueues one image's forward and then the
 copies of its persons into pinned host memory, with one CUDA event after
 them; :func:`finish_image` waits on that event alone (not on the stream,
 where image *i+1*'s forward now runs) and writes the files.
-:func:`run_image` is both for one image; they take a decoded uint8 array,
-so other drivers run exactly the demo's path.
+:func:`run_image` is both for one image; they take a decoded uint8 array
+(or, with ``x=``, the image already preprocessed), so other drivers run
+exactly the demo's path.
+
+As in the JAX demo, the images are decoded, resized and normalized by the
+native prefetching loader (``io/native.py::NativeImageLoader``, a worker
+pool in C++) when its library builds here, else on the main thread with
+PIL; the summary line names the one that ran (``"loader"``), and a failed
+build is printed to stderr. The port takes the loader's tensors in the
+folder's sorted order, holding those that arrive early, where the JAX demo
+collects the whole folder first. An image the loader cannot decode goes
+through PIL, as in the JAX demo. The overlay opens the original image.
 
 An Anny-family name (``multiHMR_672_L_anny``) runs ``MultiHMRAnny`` with the
 demo's FOV-``--fov`` K, so its persons' ``K`` is that K (``K_regressed`` and
@@ -42,22 +52,30 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 import numpy as np
 import torch
 
-from multihmr_tpu_torch.io.preprocessing import preprocess_array
+from multihmr_tpu_torch.io.preprocessing import get_camera_parameters, preprocess_array
+
 
 @torch.inference_mode()
 def predict(model, img_rgb: np.ndarray, fov: float = 60.0, det_thresh: float = 0.3,
-            nms_kernel_size: int = 3) -> dict:
+            nms_kernel_size: int = 3, x: np.ndarray = None) -> dict:
     """One decoded uint8 HWC RGB image → the model's ``[1, K]`` outputs on
-    the model's device."""
-    pre = preprocess_array(img_rgb, model.cfg.img_size, fov=fov)
+    the model's device. ``x``: the image already preprocessed instead
+    (``[S, S, 3]`` float32, contained, padded and normalized, as
+    ``io/native.py::preprocess_file`` gives it); ``img_rgb`` is then unused."""
+    S = model.cfg.img_size
+    if x is None:
+        x = preprocess_array(img_rgb, S, fov=fov).x
+    elif x.shape != (S, S, 3) or x.dtype != np.float32:
+        raise ValueError(f"x must be float32 [{S}, {S}, 3], got {x.dtype} {list(x.shape)}")
     device = model.body_model.v_template.device
-    x = torch.from_numpy(pre.x)[None].to(device)
-    K = torch.from_numpy(pre.K)[None].to(device)
-    return model.forward(x, K, det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
+    K = get_camera_parameters(S, fov=fov)  # preprocess_array's K
+    return model.forward(torch.from_numpy(x)[None].to(device), torch.from_numpy(K).to(device),
+                         det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
 
 
 def persons_to_json(persons: list) -> list:
@@ -67,11 +85,12 @@ def persons_to_json(persons: list) -> list:
 
 
 def start_image(model, img_rgb: np.ndarray, fov: float = 60.0, det_thresh: float = 0.3,
-                nms_kernel_size: int = 3):
-    """Enqueue one image's forward and its persons' device→host copies;
-    returns (outputs, pending persons) without waiting for the card."""
+                nms_kernel_size: int = 3, x: np.ndarray = None):
+    """Enqueue one image's forward (of ``img_rgb``, or of the preprocessed
+    ``x``, as :func:`predict`) and its persons' device→host copies; returns
+    (outputs, pending persons) without waiting for the card."""
     out = predict(model, img_rgb, fov=fov, det_thresh=det_thresh,
-                  nms_kernel_size=nms_kernel_size)
+                  nms_kernel_size=nms_kernel_size, x=x)
     return out, model.start_persons(out)
 
 
@@ -137,6 +156,31 @@ def run_image(model, img_rgb: np.ndarray, name: str, out_folder: str, tag: str,
     return out, persons
 
 
+def _native_loader(paths: list, img_size: int):
+    """The prefetching loader over ``paths``, or None (with the reason on
+    stderr) where the image library does not build or load."""
+    from multihmr_tpu_torch.io import native
+
+    try:
+        return native.NativeImageLoader(paths, img_size)
+    except (RuntimeError, OSError) as err:
+        print(f"demo: decoding with PIL, the native image loader is unavailable: {err}",
+              file=sys.stderr)
+        return None
+
+
+def in_order(loader):
+    """The loader's tensors in index order: ``[S, S, 3]`` float32, or None
+    for an image it could not decode. Tensors that arrive before their turn
+    wait in a dict: those finished while an earlier image still decodes."""
+    held, it = {}, iter(loader)
+    for i in range(len(loader)):
+        while i not in held:
+            idx, x = next(it)
+            held[idx if idx >= 0 else -idx - 1] = x if idx >= 0 else None
+        yield held.pop(i)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--img_folder", type=str, required=True)
@@ -172,44 +216,57 @@ def main(argv=None):
     os.makedirs(args.out_folder, exist_ok=True)
     names = sorted(f for f in os.listdir(args.img_folder)
                    if f.lower().endswith((".jpg", ".jpeg", ".png")))
+    paths = [os.path.join(args.img_folder, n) for n in names]
+    loader = _native_loader(paths, model.cfg.img_size)
+    prepared = in_order(loader) if loader is not None else iter([None] * len(names))
+    open_rgb = lambda i: np.asarray(Image.open(paths[i]).convert("RGB"))  # noqa: E731
     # one stage in flight: image i+1's forward is enqueued before image i's
     # host work. `waits` is the residual stall on image i's event (card time
     # the host work did not hide); `periods` the wall between consecutive
     # images' ends, the pipeline's time per image
     waits, periods = [], []
     wall_t0 = t_prev = time.perf_counter()
-    pending = None  # (name, image, pending persons)
-    for name in names + [None]:
-        nxt = None
-        if name is not None:
-            img = np.asarray(Image.open(os.path.join(args.img_folder, name)).convert("RGB"))
-            _, persons_next = start_image(model, img, fov=args.fov, det_thresh=args.det_thresh,
-                                          nms_kernel_size=args.nms_kernel_size)
-            nxt = (name, img, persons_next)
-        if pending is not None:
-            done_name, done_img, done_persons = pending
-            t0 = time.perf_counter()
-            done_persons.wait()
-            waits.append(time.perf_counter() - t0)
-            persons = finish_image(model, done_persons, done_img, done_name, args.out_folder,
-                                   args.model_name, fov=args.fov,
-                                   save_mesh=bool(args.save_mesh), overlay=args)
-            t_now = time.perf_counter()
-            periods.append(t_now - t_prev)
-            t_prev = t_now
-            print(f"{done_name}: {len(persons)} persons, {1000 * periods[-1]:.1f} ms, "
-                  f"{1000 * waits[-1]:.1f} ms wait")
-        pending = nxt
+    pending = None  # (index, image or None, pending persons)
+    try:
+        for i in range(len(names) + 1):
+            nxt = None
+            if i < len(names):
+                x = next(prepared)
+                # None: no loader, or the loader could not decode it (PIL then)
+                img = open_rgb(i) if x is None else None
+                _, persons_next = start_image(model, img, fov=args.fov,
+                                              det_thresh=args.det_thresh,
+                                              nms_kernel_size=args.nms_kernel_size, x=x)
+                nxt = (i, img, persons_next)
+            if pending is not None:
+                done_i, done_img, done_persons = pending
+                t0 = time.perf_counter()
+                done_persons.wait()
+                waits.append(time.perf_counter() - t0)
+                if done_img is None:  # the overlay draws on the original image
+                    done_img = open_rgb(done_i)
+                persons = finish_image(model, done_persons, done_img, names[done_i],
+                                       args.out_folder, args.model_name, fov=args.fov,
+                                       save_mesh=bool(args.save_mesh), overlay=args)
+                t_now = time.perf_counter()
+                periods.append(t_now - t_prev)
+                t_prev = t_now
+                print(f"{names[done_i]}: {len(persons)} persons, {1000 * periods[-1]:.1f} ms, "
+                      f"{1000 * waits[-1]:.1f} ms wait")
+            pending = nxt
+    finally:
+        if loader is not None:
+            loader.close()
     wall_s = time.perf_counter() - wall_t0
     print(json.dumps({
         "n_images": len(names),
         "device": str(model.body_model.v_template.device),
+        "loader": "pil" if loader is None else "native",
         "p50_image_ms": float(1000 * np.median(periods)) if periods else None,
         "p50_wait_ms": float(1000 * np.median(waits)) if waits else None,
         "wall_s": round(wall_s, 3),
         "img_per_s": round(len(names) / wall_s, 2) if names else None,
     }))
-
 
 if __name__ == "__main__":
     main()

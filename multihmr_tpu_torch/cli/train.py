@@ -11,8 +11,9 @@ The flags are the JAX CLI's, flag for flag, plus ``--device`` (default
 ``cuda``). ``--tp_mode ring`` runs the ViT's standard stream (K5 forward),
 ``heads`` the channels-major one (K1, K2); on one device neither shards
 anything. ``--pretrained`` takes this port's own checkpoint (``ckpt_*.pt``
-with its ``.json`` beside it) or a reference ``multiHMR_*.pt``, converted
-for the config the flags give.
+with its ``.json`` beside it), the JAX package's own (``ckpt_*.msgpack``,
+flax, decoded without flax and loaded strictly) or a reference
+``multiHMR_*.pt``, converted for the config the flags give.
 
 3DPW evaluation reads its assets under ``$SMPLX_DIR`` (default ``models``),
 in the reference's layout (``smplx/smplx2smpl.pkl``, ``smpl/...``) or flat:
@@ -21,9 +22,7 @@ in the reference's layout (``smplx/smplx2smpl.pkl``, ``smpl/...``) or flat:
 SMPL, with a warning).
 
 Flags of features not ported yet raise with the ROADMAP item that ports them:
-more than one device, ``--model_parallel`` or ``--fsdp`` (M11). A
-``--pretrained`` flax ``.msgpack`` (the JAX package's own format) does not
-load here.
+more than one device, ``--model_parallel`` or ``--fsdp`` (M11).
 """
 
 from __future__ import annotations
@@ -165,7 +164,8 @@ def build_argparser():
     p.add_argument(
         "--pretrained", type=str, default=None,
         help="initial weights: a checkpoint this port wrote (ckpt_*.pt with its "
-        ".json) or a reference multiHMR_*.pt",
+        ".json), one the JAX package wrote (ckpt_*.msgpack) or a reference "
+        "multiHMR_*.pt",
     )
     p.add_argument(
         "--resume", type=int, default=0,
@@ -186,10 +186,6 @@ def _unported(args, n_dev: int) -> str | None:
     if n_dev > 1 or args.model_parallel > 1 or args.fsdp:
         return ("multi-device training (--n_devices > 1, --model_parallel > 1, --fsdp 1) "
                 "is not ported yet: ROADMAP M11")
-    if args.pretrained and args.pretrained.endswith(".msgpack"):
-        return (f"--pretrained {args.pretrained}: a flax .msgpack is the JAX package's "
-                "native format and does not load here; give this port's own ckpt_*.pt or "
-                "a reference multiHMR_*.pt")
     return None
 
 
@@ -221,7 +217,7 @@ def main(argv=None):
     from multihmr_tpu_torch.data.collate import collate_padded
     from multihmr_tpu_torch.data.prefetch import bounded_parallel_map
     from multihmr_tpu_torch.factory import build_model, load_body_model, smplx_asset, smplx_dir
-    from multihmr_tpu_torch.io.checkpoint import load_checkpoint
+    from multihmr_tpu_torch.io.checkpoint import load_checkpoint, load_jax_checkpoint
     from multihmr_tpu_torch.train.evaluate import (
         evaluate_dataset,
         make_smpl_gt_forward,
@@ -260,7 +256,11 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
     if smplx_asset() is None:
         print("WARNING: SMPL-X assets not found — using the synthetic body model")
-    reference = args.pretrained and not _is_port_checkpoint(args.pretrained)
+    jax_ckpt = args.pretrained and args.pretrained.endswith(".msgpack")
+    reference = args.pretrained and not jax_ckpt and not _is_port_checkpoint(args.pretrained)
+    # the JAX package's checkpoint is decoded and mapped before any work: a
+    # corrupt or mismatched file raises before the model or a log exists
+    state = load_jax_checkpoint(args.pretrained, cfg)[0] if jax_ckpt else None
     model = build_model(device=device, seed=0, cfg=cfg, tp_mode=args.tp_mode,
                         checkpoint=args.pretrained if reference else None)
     bm = model.body_model
@@ -269,7 +269,8 @@ def main(argv=None):
     gt_bm = load_body_model(device, 11) if cfg.num_betas != 11 else bm
 
     if args.pretrained and not reference:
-        state, _ = load_checkpoint(args.pretrained)
+        if state is None:
+            state, _ = load_checkpoint(args.pretrained)
         model.net.load_state_dict(state, strict=True)
     elif not args.pretrained:
         _apply_mean_params(model.net, cfg, smplx_dir())

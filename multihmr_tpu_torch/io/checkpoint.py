@@ -18,8 +18,12 @@ the parameter tree the JAX package's ``convert_torch_checkpoint`` builds,
 leaf for leaf, and ``io/convert.py::params_from_jax`` takes that tree to
 the port's keys, so the reference → port mapping has one definition.
 :func:`convert_reference_checkpoint_anny` does the same for the Anny family
-(``multiHMR_*_anny.pt``) through ``params_from_jax_anny``. The flax msgpack
-files of the JAX package do not load here.
+(``multiHMR_*_anny.pt``) through ``params_from_jax_anny``.
+
+The JAX package's own training checkpoints, ``ckpt_{epoch:06d}.msgpack``
+(flax ``to_bytes`` of its parameter tree) with the same ``.json`` beside
+them, load through :func:`load_jax_checkpoint`: ``io/flax_msgpack.py``
+decodes the tree without flax, and ``params_from_jax`` maps it, strictly.
 """
 
 from __future__ import annotations
@@ -60,6 +64,31 @@ def load_checkpoint(path: str, map_location="cpu"):
     """(state dict, metadata dict or None) of a :func:`save_checkpoint` file."""
     state_dict = torch.load(path, map_location=map_location, weights_only=True)
     meta_path = re.sub(r"\.pt$", ".json", path)
+    meta = None
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state_dict, meta
+
+
+def load_jax_checkpoint(path: str, cfg: ModelConfig):
+    """(state dict, metadata dict or None) of the JAX package's
+    ``save_checkpoint`` file (``ckpt_*.msgpack``; the metadata is the
+    ``.json`` beside it), for ``cfg``. The load is strict: a parameter the
+    port lacks, one it does not get, or a shape that differs raises."""
+    from multihmr_tpu_torch.io.flax_msgpack import load as load_msgpack
+
+    def fp32(tree):  # numpy has no bf16: a bf16 leaf arrives as a torch tensor
+        if isinstance(tree, dict):
+            return {k: fp32(v) for k, v in tree.items()}
+        return tree.float().numpy() if isinstance(tree, torch.Tensor) else tree
+
+    tree = load_msgpack(path)
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: a flax checkpoint holds a parameter dict, not "
+                         f"{type(tree).__name__}")
+    state_dict = params_from_jax(fp32(tree), cfg)
+    meta_path = re.sub(r"\.msgpack$", ".json", path)
     meta = None
     if os.path.exists(meta_path):
         with open(meta_path) as f:
@@ -343,7 +372,15 @@ def _fp32(v) -> np.ndarray:
 def convert_reference_checkpoint(ckpt_or_path, cfg: ModelConfig) -> dict:
     """A reference checkpoint (path, ``{'model_state_dict', 'args'}`` or a
     bare state dict) → the port's ``MultiHMRNet`` state dict (fp32 CPU
-    tensors) for ``cfg``.
+    tensors) for ``cfg``: :func:`jax_tree_from_reference`, then
+    ``params_from_jax``."""
+    return params_from_jax(jax_tree_from_reference(ckpt_or_path, cfg), cfg)
+
+
+def jax_tree_from_reference(ckpt_or_path, cfg: ModelConfig) -> dict:
+    """A reference checkpoint → the JAX package's ``{"params": tree}`` for
+    ``cfg`` (fp32 numpy leaves, some of them transposed views), leaf for leaf
+    what its ``convert_torch_checkpoint`` builds.
 
     Missing keys raise a ``KeyError`` that lists them all, tensors of the
     wrong shape a ``ValueError``; keys the converter does not use warn
@@ -457,8 +494,7 @@ def convert_reference_checkpoint(ckpt_or_path, cfg: ModelConfig) -> dict:
         head[f"ff_norm{i}"] = norm(layer + "2.norm")
         head[f"ff{i}"] = {"fc1": dense(layer + "2.fn.net.0"), "fc2": dense(layer + "2.fn.net.3")}
     p["x_attention_head"] = head
-
-    return params_from_jax({"params": p}, cfg)
+    return {"params": p}
 
 
 class _HintingSD(dict):

@@ -2,7 +2,8 @@
 end on the CPU, on the synthetic BEDLAM and EHF trees of
 tests/test_cli_train.py: one epoch of BEDLAM training on each ViT stream
 with the epoch-end BEDLAM + EHF evaluation, ``--eval_only 1 --amp 0``,
-``--resume`` and ``--pretrained`` (this port's checkpoints here; reference
+``--resume`` and ``--pretrained`` (this port's checkpoints and the JAX
+package's ``.msgpack`` here; reference
 ``multiHMR_*.pt`` files in tests/test_torch_checkpoint.py, whose faults must
 raise the JAX package's errors), and the flags of features not ported yet,
 which must raise, and ``--visu_to_save``'s eval triptychs. ``--valset
@@ -101,18 +102,57 @@ def test_train_cli_visu_to_save(trees, capsys):
     (["--n_devices", "2"], "M11"),
     (["--model_parallel", "2"], "M11"),
     (["--fsdp", "1"], "M11"),
-    (["--pretrained", "ckpt.msgpack"], "the JAX package's native format"),
 ])
 def test_unported_flags_raise(trees, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         main(TINY[:-4] + ["--device", "cpu"] + flags)
 
 
-def test_unported_flags_raise_before_any_work(trees):
-    # a flax .msgpack is refused before the model is built or a log is opened
+def _jax_checkpoint(ckpt_dir):
+    """The JAX package's save_checkpoint of a model at TINY's configuration
+    (the JAX CLI's config for those flags), and the same params as this
+    port's own checkpoint (params_from_jax, save_checkpoint)."""
+    import jax
+
+    from multihmr_tpu.bodymodel import synthetic_body_model as jsynthetic
+    from multihmr_tpu.config import ModelConfig as JConfig
+    from multihmr_tpu.io.checkpoint import save_checkpoint as jsave
+    from multihmr_tpu.models.multihmr import MultiHMR as JMultiHMR
+    from multihmr_tpu_torch.config import ModelConfig
+    from multihmr_tpu_torch.io.checkpoint import save_checkpoint
+    from multihmr_tpu_torch.io.convert import params_from_jax
+
+    kw = dict(backbone="dinov2_vits14", img_size=56, xat_depth=1, max_people=4)
+    params = JMultiHMR(JConfig(**kw), jsynthetic()).init_params(jax.random.PRNGKey(1))
+    msgpack_path = jsave(os.path.join(ckpt_dir, "jax"), params, 0, JConfig(**kw))
+    cfg = ModelConfig(**kw)
+    pt_path = save_checkpoint(os.path.join(ckpt_dir, "port"),
+                              params_from_jax(jax.device_get(params), cfg), 0, cfg)
+    return msgpack_path, pt_path
+
+
+def test_pretrained_jax_msgpack_matches_port_checkpoint(trees, capsys):
+    """--pretrained of the JAX package's ckpt_*.msgpack evaluates exactly as
+    the same weights in this port's own ckpt_*.pt (ROADMAP Queue 1, M5)."""
+    msgpack_path, pt_path = _jax_checkpoint("given")
+    for name, path in (("from_msgpack", msgpack_path), ("from_pt", pt_path)):
+        main(TINY + ["--valset", "ehf", "--eval_only", "1", "--amp", "0", "--name", name,
+                     "--pretrained", path])
+        assert "eval[ehf-test] epoch 0" in capsys.readouterr().out
+    got, want = _metrics("from_msgpack"), _metrics("from_pt")
+    assert got == want and "ehf-test-1/pve" in got and np.isfinite(got["ehf-test-1/pve"])
+
+
+@pytest.mark.parametrize("content,error,match", [
+    (b"\x80", KeyError, "port keys not filled"),  # an empty map: no parameter at all
+    (b"\x81\xa6params\xc7", ValueError, "truncated"),
+])
+def test_corrupt_msgpack_raises_before_any_work(trees, content, error, match):
+    # a flax .msgpack that does not decode or map is refused before the
+    # model is built or a log is opened
     with open("ckpt.msgpack", "wb") as f:
-        f.write(b"\x80")
-    with pytest.raises(NotImplementedError, match="does not load here"):
+        f.write(content)
+    with pytest.raises(error, match=match):
         main(TINY + ["--pretrained", "ckpt.msgpack", "--eval_only", "1"])
     assert not os.path.exists("logs")
 

@@ -157,3 +157,150 @@ def test_demo_writes_the_jax_demos_files(tmp_path, monkeypatch):
         assert covered.sum() > 0
         np.testing.assert_array_equal((panel != img).any(-1), covered)
         assert (panel != arr).any(-1).sum() <= 0.01 * covered.sum()
+
+
+def _spy_overlay(monkeypatch, events):
+    """Record a "process" event where the demo draws an image's overlay."""
+    import multihmr_tpu_torch.render as render
+
+    real_overlay = render.overlay_human_meshes
+
+    def overlay_spy(*a, **kw):
+        events.append("process")
+        return real_overlay(*a, **kw)
+
+    monkeypatch.setattr(render, "overlay_human_meshes", overlay_spy)
+
+
+def _folder(src, specs):
+    """Images by name: (h, w) for a PNG or JPEG by the name's extension, or
+    "bmp" for a BMP under a .png name (the native decoder refuses it, PIL
+    reads it)."""
+    from PIL import Image
+
+    src.mkdir(exist_ok=True)
+    rng = np.random.default_rng(4)
+    for name, spec in specs.items():
+        img = Image.fromarray(rng.integers(0, 256, size=(36, 44, 3), dtype=np.uint8))
+        if spec == "bmp":
+            img.save(src / name, format="BMP")
+        else:
+            Image.fromarray(rng.integers(0, 256, size=spec + (3,), dtype=np.uint8)).save(src / name)
+
+
+def test_demo_native_loader(tmp_path, monkeypatch, capsys):
+    """The JAX demo's native loader (multihmr_tpu/cli/demo.py:85-107): the
+    summary names it; the one-stage pipeline runs as before; each image's
+    forward takes its preprocess_file tensor in sorted order (a large first
+    image arrives after the small ones behind it and they wait for it); a
+    file the loader cannot decode goes through PIL, as the JAX demo's
+    load_image does."""
+    from PIL import Image
+
+    import multihmr_tpu_torch.factory as factory
+    from multihmr_tpu_torch.cli import demo
+    from multihmr_tpu_torch.io import native
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+
+    src, out = tmp_path / "in", tmp_path / "out"
+    _folder(src, {"a_big.jpg": (1600, 1200), "b.png": (40, 48), "c.png": "bmp",
+                  "d.jpg": (30, 50), "e.png": (64, 20)})
+    names = sorted(os.listdir(src))
+    events, calls = [], []
+    model = _FakeModel(events)
+    monkeypatch.setattr(factory, "build_model", lambda *a, **kw: model)
+    _spy_overlay(monkeypatch, events)
+    start = demo.start_image
+
+    def spy(model, img, *a, x=None, **kw):
+        calls.append((img, x))
+        return start(model, img, *a, x=x, **kw)
+
+    monkeypatch.setattr(demo, "start_image", spy)
+    demo.main(["--img_folder", str(src), "--out_folder", str(out), "--model_name", "stub",
+               "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert summary["loader"] == "native" and summary["n_images"] == 5
+    assert events == ["dispatch", "dispatch"] + ["process", "dispatch"] * 3 + ["process"] * 2
+    assert len(calls) == len(names)
+    for name, (img, x) in zip(names, calls):
+        path = str(src / name)
+        if name == "c.png":  # refused by the loader: decoded by PIL, preprocessed as before
+            assert x is None
+            np.testing.assert_array_equal(img, np.asarray(Image.open(path).convert("RGB")))
+            with pytest.raises(IOError):
+                native.preprocess_file(path, 64)
+            assert preprocess_array(img, 64).x.shape == (64, 64, 3)
+        else:
+            assert img is None
+            np.testing.assert_array_equal(x, native.preprocess_file(path, 64), err_msg=name)
+    # the overlay draws on the original image
+    for name in names:
+        strip = np.asarray(Image.open(out / f"{name}_stub.png"))
+        orig = np.asarray(Image.open(src / name).convert("RGB"))
+        np.testing.assert_array_equal(strip[:, :orig.shape[1]], orig)
+
+
+def test_in_order_holds_early_arrivals():
+    """The loader's completion order → the demo's sorted order; failures
+    (-(i + 1)) become None."""
+    from multihmr_tpu_torch.cli.demo import in_order
+
+    a = {i: np.full((2, 2, 3), i, np.float32) for i in range(5)}
+
+    class Loader:
+        def __len__(self):
+            return 5
+
+        def __iter__(self):
+            yield from [(3, a[3]), (0, a[0]), (-3, np.zeros((2, 2, 3), np.float32)), (1, a[1]),
+                        (4, a[4])]
+
+    got = list(in_order(Loader()))
+    assert [None if g is None else int(g[0, 0, 0]) for g in got] == [0, 1, None, 3, 4]
+
+
+def test_demo_pil_without_the_image_library(tmp_path, monkeypatch, capsys):
+    """Where the image library does not build, the demo says so on stderr
+    and runs the PIL path: the summary names it, the outputs are those of
+    the decoded images."""
+    import multihmr_tpu_torch.factory as factory
+    from multihmr_tpu_torch.cli import demo
+    from multihmr_tpu_torch.io import native
+
+    def no_library(*a, **kw):
+        raise RuntimeError("building image_io.cpp failed (1): jpeglib.h: No such file")
+
+    src = tmp_path / "in"
+    _folder(src, {"a.jpg": (40, 48), "b.png": (30, 30)})
+    events, calls = [], []
+    model = _FakeModel(events)
+    monkeypatch.setattr(factory, "build_model", lambda *a, **kw: model)
+    monkeypatch.setattr(native, "NativeImageLoader", no_library)
+    _spy_overlay(monkeypatch, events)
+    start = demo.start_image
+    monkeypatch.setattr(demo, "start_image",
+                        lambda m, img, *a, x=None, **kw: calls.append(x) or start(m, img, *a, **kw))
+    demo.main(["--img_folder", str(src), "--out_folder", str(tmp_path / "out"),
+               "--model_name", "stub", "--device", "cpu"])
+    captured = capsys.readouterr()
+    assert json.loads(captured.out.splitlines()[-1])["loader"] == "pil"
+    assert "decoding with PIL" in captured.err and "jpeglib.h" in captured.err
+    assert calls == [None, None] and events == ["dispatch", "dispatch", "process", "process"]
+
+
+def test_demo_unreadable_file_raises(tmp_path, monkeypatch):
+    """A file neither the loader nor PIL can read raises PIL's error, as the
+    JAX demo's open_image does."""
+    from PIL import UnidentifiedImageError
+
+    import multihmr_tpu_torch.factory as factory
+    from multihmr_tpu_torch.cli import demo
+
+    src = tmp_path / "in"
+    src.mkdir()
+    (src / "x.jpg").write_bytes(b"not an image at all")
+    monkeypatch.setattr(factory, "build_model", lambda *a, **kw: _FakeModel([]))
+    with pytest.raises(UnidentifiedImageError):
+        demo.main(["--img_folder", str(src), "--out_folder", str(tmp_path / "out"),
+                   "--model_name", "stub", "--device", "cpu"])
