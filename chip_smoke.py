@@ -12,8 +12,10 @@ reference ``multiHMR_*.pt`` layout (the demo's ``--ckpt``, the CLI's
 ``--pretrained`` with its 3DPW evaluation), on the ViT's standard stream
 (``--tp_mode ring``, K5) and its channels-major one (``heads``, K1 and K2),
 serving ``multiHMR_672_B`` at batch 8 through the HTTP server with its
-overlay renderer, and the same model exported with ``torch.export`` and
-served from the artifact. Phases, one line each:
+overlay renderer, the same model exported with ``torch.export`` and
+served from the artifact, and the multi-device paths (tensor parallelism,
+ring attention, FSDP, data parallelism, the torchrun launch) on the one
+card. Phases, one line each:
 
   1. the card, its name and power limit (nvidia-smi);
   2. the kernel build;
@@ -176,9 +178,33 @@ served from the artifact. Phases, one line each:
      ``create_jpeg``, ``create_annots``, ``dataloader`` and ``visualize``
      on seeded BEDLAM and EHF trees (GT vertices on the card within 1e-4 m
      of the CPU's).
+ 21. multi-device execution (``multihmr_tpu_torch/parallel``) on the one
+     card: K1 and K3 at 8 and 4 heads (tensor parallelism's shares of
+     896_L's 16) against their plain versions under phases 3 and 8's
+     limits; then two spawned ranks on cuda:0 joined by gloo, which stage
+     through host memory the calls gloo does not take on CUDA tensors
+     (``stage_collectives``: ``batch_isend_irecv`` and FSDP2's all-gather
+     and reduce-scatter; each rank prints them with their bytes): (a)
+     896_L bf16 with heads TP at model 2 (LayerScale 0.5) against one
+     rank on the same weights, patch tokens and v3d (under one rank's
+     detections) within phase 13's stream limit and no further from the
+     fp32 stream than one rank is, 24 K1 at 8 heads + 48 K2 per rank; (b)
+     a 672_S fp32 4-block TP train step against one rank (gradients within
+     2e-3, updated parameters within 1e-3 of the step), and one 896_L bf16
+     step at full depth (finite, 24 K1 + 24 K3 + 48 K2 per rank); (c) the
+     ring at model 2 against the one-rank standard stream; (d) FSDP at data
+     2 with 4 and 1 valid slots on the ranks, the step against one rank and
+     the Adam moments' bytes per rank about half one rank's; then in this
+     process (e) ``folder_inference`` and a ``--dp`` server over [cuda:0,
+     cuda:0] at 672_B batch 8, each answer bitwise equal to its batch-4
+     chunk's single-device forward, 24 K1 + 48 K2 per batch; (f) ``torchrun
+     --nproc_per_node 1 -m multihmr_tpu_torch.cli.train --n_devices 1`` for
+     two steps on NCCL. Times here come from two ranks sharing one card
+     through staged collectives and are no scaling figure.
 
 Then a JSON line of the kernels (each with ``artifact_launches``, its
-launches per 672_B batch through phase 19's artifacts), the nvidia-smi
+launches per 672_B batch through phase 19's artifacts; ``launches`` adds
+phase 21's, all ranks), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
 Exits non-zero at once without a CUDA card.
@@ -3583,6 +3609,592 @@ def run_io(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attent
     return figures
 
 
+# ---- phase 21: multi-device execution (M11) on one card, two ranks
+
+# whole-model bf16 comparisons, mesh against one rank on the same weights:
+# relative L2 error of the final-norm patch tokens, and of v3d under the
+# one-rank forward's detections (a ulp of noise in the scores of random
+# weights would otherwise reorder the K slots, whose meshes lie metres
+# apart). The tensor-parallel proj and fc2 sum two bf16 partial products
+# where one rank rounds one fp32 sum, over 24 blocks: phase 13's bf16
+# stream limit
+PAR_TOL = STREAM_TOL
+# an updated parameter, mesh against one rank, beyond two fp32 ulps of its
+# value, in units of Adam's first step (lr), where the gradient is at least
+# 1e-2 of its parameter's largest
+STEP_TOL = 1e-3
+PAR_LAUNCHES = {"heads_fwd": (24, 48, 0), "ring_fwd": (0, 0, 0),  # K1/K2/K5 per rank
+                "train4": (4, 4, 8), "train24": (24, 24, 48)}  # K1/K3/K2 per rank
+# DP in one process: 672_B batch 8 as two chunks of 4 on [cuda:0, cuda:0]
+DP_LAUNCHES = (24, 48, 0)  # K1/K2/K5 per batch of 8: (12, 24, 0) per chunk
+
+
+class _Done:
+    """A collective request that has already finished (it ran staged)."""
+
+    def wait(self, *args, **kwargs):
+        return True
+
+    def is_completed(self):
+        return True
+
+
+def stage_collectives(calls, nbytes):
+    """In this process only, route through host memory the ``torch.distributed``
+    calls that gloo does not take on CUDA tensors on the card (probed there
+    with torch 2.11: ``batch_isend_irecv`` fails with "Bad address", and an
+    FSDP2 step kills a rank with SIGSEGV, so its all-gather and
+    reduce-scatter go too): a CUDA operand is copied to the host, the call
+    runs there on gloo, synchronously, and the result is copied back.
+    ``calls`` and ``nbytes`` count each staged call and the bytes it moved
+    each way. The package never stages: this is how two ranks share one
+    card here, and a time taken through it is no scaling figure."""
+    import inspect
+
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    def install(name, staged):
+        if hasattr(dist, name):
+            setattr(dist, name, staged)
+        if hasattr(c10d, name):
+            setattr(c10d, name, staged)
+
+    def two_tensors(name):
+        orig = getattr(dist, name, None)
+        if orig is None:  # not in this torch
+            return
+        sig = inspect.signature(orig)
+        out_name, in_name = list(sig.parameters)[:2]
+
+        def staged(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            out, inp = bound.arguments[out_name], bound.arguments[in_name]
+            if out.device.type != "cuda":
+                return orig(*args, **kwargs)
+            async_op = bound.arguments.get("async_op", False)
+            bound.arguments["async_op"] = False
+            host_out = torch.empty(out.shape, dtype=out.dtype)
+            bound.arguments[out_name], bound.arguments[in_name] = host_out, inp.detach().cpu()
+            orig(*bound.args, **bound.kwargs)
+            out.copy_(host_out)
+            calls[name] += 1
+            nbytes[name] += inp.numel() * inp.element_size() + out.numel() * out.element_size()
+            return _Done() if async_op else None
+
+        install(name, staged)
+
+    for name in ("all_gather_into_tensor", "all_gather_single", "reduce_scatter_tensor",
+                 "reduce_scatter_single"):
+        two_tensors(name)
+    orig_p2p = dist.batch_isend_irecv
+
+    def staged_p2p(ops):
+        if not any(op.tensor.device.type == "cuda" for op in ops):
+            return orig_p2p(ops)
+        host_ops, back = [], []
+        for op in ops:
+            t = op.tensor.detach().cpu()
+            host_ops.append(dist.P2POp(op.op, t, op.peer, op.group, op.tag))
+            if op.op is dist.irecv:
+                back.append((op.tensor, t))
+            nbytes["batch_isend_irecv"] += t.numel() * t.element_size()
+        for work in orig_p2p(host_ops):
+            work.wait()
+        for dst, src in back:
+            dst.copy_(src)
+        calls["batch_isend_irecv"] += 1
+        return [_Done() for _ in ops]
+
+    install("batch_isend_irecv", staged_p2p)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _beyond_flash(a, b) -> tuple:
+    """(max |a - b| beyond one bf16 ulp of |b|, the 2^-5 rms(b) floor): the
+    bf16 flash limit's terms, elementwise, for the record."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs() - BF16_ULP * b.abs()).max().item(), \
+        BF16_FLOOR_RMS * b.square().mean().sqrt().item()
+
+
+def _launch_tuple(cuda_lib, names):
+    return tuple(cuda_lib.LAUNCHES.get(k, 0) for k in names)
+
+
+def _par_cfg(named_config, name, layerscale=LAYERSCALE, depth=None, dtype=None):
+    base = named_config(name)
+    vit = dataclasses.replace(base.vit, layerscale_init=layerscale,
+                              **({} if depth is None else {"depth": depth}))
+    return dataclasses.replace(base, vit_override=vit,
+                               **({} if dtype is None else {"compute_dtype": dtype}))
+
+
+def _par_compare(one, sharded, x, K, control):
+    """Patch tokens and v3d (under ``one``'s detections) of a mesh model
+    against one rank, and the tokens of each against ``control`` (the fp32
+    stream's)."""
+    with torch.inference_mode():
+        ref = one.forward(x, K)
+        tok = [m.net.backbone(x)["patch_tokens"] for m in (one, sharded)]
+        v3d = [m.forward(x, K, is_training=True, gt_det=ref["det"])["v3d"] for m in (one, sharded)]
+    return {"tokens": _rel_l2(tok[1], tok[0]), "tokens_flash": _beyond_flash(tok[1], tok[0]),
+            "one_vs_fp32": _rel_l2(tok[0], control), "mesh_vs_fp32": _rel_l2(tok[1], control),
+            "v3d": _rel_l2(v3d[1], v3d[0]), "v3d_max": (v3d[1] - v3d[0]).abs().max().item(),
+            "finite": bool(torch.isfinite(v3d[1]).all())}
+
+
+def _par_ok(c):
+    return (c["tokens"] <= PAR_TOL and c["v3d"] <= PAR_TOL and c["finite"]
+            and c["mesh_vs_fp32"] <= STREAM_RATIO * c["one_vs_fp32"])
+
+
+def _par_text(c):
+    return (f"patch tokens rel L2 {c['tokens']:.3e}, v3d rel L2 {c['v3d']:.3e} (max abs "
+            f"{c['v3d_max']:.3e} m) (tol {PAR_TOL:g}); tokens against the fp32 stream: mesh "
+            f"{c['mesh_vs_fp32']:.3e}, one rank {c['one_vs_fp32']:.3e} (mesh <= "
+            f"{STREAM_RATIO:g} x one rank); tokens beyond one bf16 ulp {c['tokens_flash'][0]:.3e} "
+            f"against the flash floor 2^-5 rms {c['tokens_flash'][1]:.3e} (recorded)")
+
+
+def _train_compare(model, mesh, batch, build_ref, cuda_lib, names, lr=1e-5):
+    """One Adam step on ``model`` (a mesh model) and, on rank 0, the same
+    step on one rank (``build_ref()``): whole-batch loss terms; gradients
+    relative to each one's largest magnitude; the updated parameters in units
+    of the step size ``lr`` where the one-rank gradient is at least 1e-2 of
+    its parameter's largest (Adam's first step moves a parameter by about
+    lr * sign(g), so a gradient at its noise floor decides a whole step, as
+    tests/test_torch_train.py has it); the step's launches; and the per-rank
+    Adam-moment bytes against one rank's."""
+    from torch.distributed.tensor import DTensor
+
+    from multihmr_tpu_torch.parallel import sharding
+    from multihmr_tpu_torch.train.trainer import BATCH_KEYS, Trainer, make_train_step, to_device
+
+    trainer = Trainer(model, torch.optim.Adam(model.net.parameters(), lr=lr, eps=1e-8),
+                      mesh=mesh, fsdp=True)
+    local = sharding.shard_batch({k: batch[k] for k in BATCH_KEYS}, mesh)
+    cuda_lib.reset_launches()  # the mesh step's run starts here
+    terms = trainer.train_step(to_device(local, "cuda"), 0)
+    launches = _launch_tuple(cuda_lib, names)  # read just after it
+    grads = {n: sharding.gather_tensor(n, p.grad, mesh, model.tp_mode)
+             for n, p in model.net.named_parameters()}
+    params = trainer.full_state()
+    mine = sum((v.to_local() if isinstance(v, DTensor) else v).numel() * v.element_size()
+               for s in trainer.optimizer.state.values() for k, v in s.items()
+               if k.startswith("exp_avg"))
+    res = {"terms": {k: float(v) for k, v in terms.items()}, "moment_bytes": mine,
+           "launches": launches,
+           "valid_here": float(local["gt_valid"].sum()),
+           "fsdp_leaves": len(trainer.fsdp_names)}
+    if torch.distributed.get_rank() == 0:
+        ref = build_ref()
+        opt = torch.optim.Adam(ref.net.parameters(), lr=lr, eps=1e-8)
+        rterms = make_train_step(ref, opt)(to_device({k: batch[k] for k in BATCH_KEYS},
+                                                     "cuda"), 0)
+        res["ref_terms"] = {k: float(v) for k, v in rterms.items()}
+        rel = lambda a, b: _grad_rel(a, b) if float(b.abs().max()) > 0 else 0.0  # noqa: E731
+        rgrads = dict(ref.net.named_parameters())
+        res["grad_err"] = max((rel(grads[n], p.grad), n) for n, p in rgrads.items()
+                              if p.grad is not None)
+        rstate = ref.net.state_dict()
+
+        def step_err(n, p):
+            # |mesh - one rank| beyond two fp32 ulps of the value, over lr,
+            # where |g| >= 1e-2 max |g|
+            g = p.grad.abs()
+            big = (g >= 1e-2 * g.max()).cpu()
+            want = rstate[n].cpu().float()
+            ulp = (torch.nextafter(want, want + 1) - want).abs()
+            d = ((params[n].float() - want).abs() - 2 * ulp)[big]
+            return max(d.max().item(), 0.0) / lr if d.numel() else 0.0
+
+        res["param_err"] = max((step_err(n, p), n) for n, p in rgrads.items()
+                               if p.grad is not None and float(p.grad.abs().max()) > 0)
+        res["ref_moment_bytes"] = sum(v.numel() * v.element_size() for s in opt.state.values()
+                                      for k, v in s.items() if k.startswith("exp_avg"))
+    return res
+
+
+def parallel_rank(rank, n, partial):
+    """Phase 21's ranks: two processes on cuda:0, joined by gloo. Each part's
+    results also go to ``partial`` + rank as soon as they exist, for the
+    log of a run that a later part fails."""
+    import collections
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    calls, nbytes = collections.Counter(), collections.Counter()
+    stage_collectives(calls, nbytes)
+
+    from multihmr_tpu_torch.config import VITS, named_config
+    from multihmr_tpu_torch.factory import build_model
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+    from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
+    from multihmr_tpu_torch.ops import attention, cuda_lib, norm
+    from multihmr_tpu_torch.parallel.sharding import make_mesh, shard_state_dict
+    from multihmr_tpu_torch.tools.train_smoke import synthetic_batch, train_config
+    from multihmr_tpu_torch.train.trainer import BATCH_KEYS, Trainer, to_device
+    from multihmr_tpu_torch.utils.precision import cast_backbone_bf16
+
+    fwd_names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    bwd_names = (attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL)
+    mesh = make_mesh(n, n, device_type="cuda")  # data 1 x model 2
+    out, t0 = {}, time.perf_counter()
+    pre = preprocess_array(synthetic_image(0, 480, 640), 896)
+    x, K = (torch.from_numpy(a)[None].cuda() for a in (pre.x, pre.K))
+
+    # (a) 896_L, heads TP at model 2, bf16, full width and depth
+    cfg = _par_cfg(named_config, "multiHMR_896_L")
+    one = build_model(device="cuda", seed=0, cfg=cfg)
+    full = {k: v.clone() for k, v in one.net.state_dict().items()}  # fp32, for (c)
+    cast_backbone_bf16(one.net)
+    bm = one.body_model
+
+    def on_mesh(c, tp_mode, m=None, bf16=True):  # ``full``'s weights, cut for ``m``
+        with torch.device("meta"):
+            net = MultiHMRNet(c, tp_mode=tp_mode, mesh=m)
+        net.load_state_dict(full if m is None else shard_state_dict(full, m, tp_mode),
+                            assign=True)
+        return MultiHMR(c, bm, net=cast_backbone_bf16(net.eval()) if bf16 else net.eval(),
+                        mesh=m)
+
+    with torch.inference_mode():  # the fp32 stream: the control of (a) and (c)
+        control = on_mesh(dataclasses.replace(cfg, compute_dtype="float32"), "heads",
+                          bf16=False).net.backbone(x)["patch_tokens"].float()
+    tp = build_model(device="cuda", seed=0, cfg=cfg, mesh=mesh)  # the same seeded weights, cut
+    cast_backbone_bf16(tp.net)
+    cuda_lib.reset_launches()  # the heads-TP forward's run starts here
+    with torch.inference_mode():
+        tp.forward(x, K)
+    out["a_launches"] = _launch_tuple(cuda_lib, fwd_names)  # read just after it
+    out["a_heads"] = tp.net.backbone.blocks[0].attn.num_heads
+    out["a"] = _par_compare(one, tp, x, K, control)
+    with torch.inference_mode():  # walls: one rank alone, then both ranks' TP forward
+        out["a_ms"] = (wall_ms(lambda: one.forward(x, K), reps=3, warmup=1),
+                       wall_ms(lambda: tp.forward(x, K), reps=3, warmup=1))
+    del one, tp
+    torch.cuda.empty_cache()
+    torch.save(out, f"{partial}{rank}.pt")
+
+    # (b) heads TP train steps: 672_S fp32 at 4 blocks (LayerScale 0.5)
+    # against one rank, then one 896_L bf16 step at full depth
+    cfg4 = dataclasses.replace(train_config("multiHMR_672_S", max_people=4),
+                               compute_dtype="float32",
+                               vit_override=dataclasses.replace(VITS, depth=4,
+                                                                layerscale_init=LAYERSCALE))
+    batch = synthetic_batch(2, cfg4.max_people, cfg4.img_size, seed=1)
+    out["b4"] = _train_compare(build_model("multiHMR_672_S", device="cuda", seed=0, cfg=cfg4,
+                                           mesh=mesh), mesh, batch,
+                               lambda: build_model("multiHMR_672_S", device="cuda", seed=0,
+                                                   cfg=cfg4), cuda_lib, bwd_names)
+    out["b4_launches"] = out["b4"]["launches"]
+    out["b4_heads"] = 6 // n
+    cfg24 = train_config("multiHMR_896_L", max_people=8)
+    big = build_model(device="cuda", seed=0, cfg=cfg24, mesh=mesh)
+    trainer = Trainer(big, torch.optim.Adam(big.net.parameters(), lr=5e-6, eps=1e-8), mesh=mesh)
+    b1 = synthetic_batch(1, 8, 896, seed=2)
+    cuda_lib.reset_launches()  # the full-depth bf16 step's run starts here
+    terms = trainer.train_step(to_device({k: b1[k] for k in BATCH_KEYS}, "cuda"), 0)
+    torch.cuda.synchronize()
+    out["b24_launches"] = _launch_tuple(cuda_lib, bwd_names)
+    out["b24"] = {k: float(v) for k, v in terms.items()}
+    del big, trainer
+    torch.cuda.empty_cache()
+    torch.save(out, f"{partial}{rank}.pt")
+
+    # (c) 896_L ring at model 2 against the one-rank standard stream, on
+    # (a)'s weights (replicated: the ring shards the sequence)
+    one, ring = on_mesh(cfg, "ring"), on_mesh(cfg, "ring", mesh)
+    cuda_lib.reset_launches()  # the ring forward's run starts here
+    with torch.inference_mode():
+        ring.forward(x, K)
+    out["c_launches"] = _launch_tuple(cuda_lib, fwd_names)
+    out["c"] = _par_compare(one, ring, x, K, control)
+    with torch.inference_mode():
+        out["c_ms"] = (wall_ms(lambda: one.forward(x, K), reps=3, warmup=1),
+                       wall_ms(lambda: ring.forward(x, K), reps=3, warmup=1))
+    del one, ring, full, control
+    torch.cuda.empty_cache()
+    torch.save(out, f"{partial}{rank}.pt")
+
+    # (d) FSDP at data 2 (fsdp_min_size 2^16), fp32 4-block 672_S, one
+    # image per rank with unequal valid counts (4 and 1)
+    dmesh = make_mesh(n, 1, device_type="cuda")
+    bd = synthetic_batch(2, cfg4.max_people, cfg4.img_size, seed=3)
+    bd["gt_valid"] = np.array([[1, 1, 1, 1], [0, 1, 0, 0]], np.float32)
+    out["d"] = _train_compare(build_model("multiHMR_672_S", device="cuda", seed=0, cfg=cfg4,
+                                          mesh=dmesh), dmesh, bd,
+                              lambda: build_model("multiHMR_672_S", device="cuda", seed=0,
+                                                  cfg=cfg4), cuda_lib, bwd_names)
+    out["staged"] = {k: (calls[k], nbytes[k]) for k in calls}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_heads_kernels(attention):
+    """K1 and K3 at the head counts tensor parallelism gives 896_L (8 at
+    model 2, 4 at model 4) against their plain versions, under phases 3
+    and 8's limits."""
+    errs = {}
+    for heads in (8, 4):
+        for n, dt, kv_len in ((4104, torch.bfloat16, 4097), (4097, torch.float32, None)):
+            q, k, v = qkv_views(n, dt, heads=heads, seed=heads, kv_len=kv_len)
+            out, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=kv_len)
+            ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=kv_len)
+            ok, e_out, text = fwd_check(out, ref_out, lse, ref_lse)
+            do = torch.randn(q.shape, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(5)).to(dt)
+            grads = attention._flash_bwd_impl_t(q, k, v, out, lse, do, kv_len=kv_len, fused=True)
+            ref = attention.flash_bwd_reference_t(q, k, v, out, lse, do, kv_len=kv_len)
+            lim = n if kv_len is None else kv_len
+            e3 = [_grad_rel(a[..., :lim], r[..., :lim]) for a, r in zip(grads, ref)]
+            ok = ok and all(e <= BWD_TOL[dt] for e in e3)
+            name = case_name(n, dt, kv_len, 1).replace(",16,", f",{heads},")
+            log(21, f"K1 {name}: {text}; K3 rel err dq/dk/dv "
+                    f"{'/'.join(f'{e:.2e}' for e in e3)} (tol {BWD_TOL[dt]:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1/K3 at {heads} heads disagree with their plain versions")
+            errs[(heads, str(dt)[6:])] = e_out
+    return errs
+
+
+def dp_in_process(build_model, cast_backbone_bf16, cuda_lib, names, card):
+    """(e) folder_inference and a data-parallel server over [cuda:0, cuda:0]
+    at 672_B batch 8: each person against the same image in its slot of a
+    single-device batch-8 forward (SERVE_TOL), and bitwise against the
+    single-device forward of the same batch-4 chunk."""
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+    from multihmr_tpu_torch.parallel.infer import folder_inference
+
+    model = build_model(SERVE, device="cuda", seed=0)
+    cast_backbone_bf16(model.net)
+    S = model.cfg.img_size
+    pres = [preprocess_array(synthetic_image(200 + i, *SERVE_SIZES[i % 3]), S) for i in range(8)]
+    images = [p.x for p in pres]
+    Ks = np.stack([p.K for p in pres])
+    devices = ["cuda:0", "cuda:0"]
+    cuda_lib.reset_launches()  # the DP folder run starts here
+    got = folder_inference(model, images, Ks, det_thresh=0.3, batch_size=8, mesh=devices)
+    launches = _launch_tuple(cuda_lib, names)  # read just after it
+    x = torch.from_numpy(np.stack(images)).cuda()
+    K = torch.from_numpy(Ks).cuda()
+    with torch.inference_mode():
+        full = model.extract_persons(model.forward(x, K))
+        chunks = sum((model.extract_persons(model.forward(x[i:i + 4], K[i:i + 4]))
+                      for i in (0, 4)), [])
+    worst, bitwise, counts = 0.0, True, True
+    for g, f, c in zip(got, full, chunks):
+        counts = counts and len(g) == len(f) == len(c)
+        for pg, pf, pc in zip(g, f, c):
+            for k in pg:
+                a, b = np.asarray(pg[k], np.float64), np.asarray(pf[k], np.float64)
+                worst = max(worst, np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+                bitwise = bitwise and np.array_equal(np.asarray(pg[k]), np.asarray(pc[k]))
+    n_persons = sum(len(g) for g in got)
+    ok = bitwise and launches == DP_LAUNCHES and n_persons > 0
+    log(21, f"(e) folder_inference over {devices}, {SERVE} bf16 batch 8: {n_persons} persons, "
+            f"each chunk's persons against the same 4 images' single-device forward "
+            f"{'bitwise equal' if bitwise else 'NOT bitwise equal'}; launches K1/K2/K5 "
+            f"{launches} (want {DP_LAUNCHES}) {'ok' if ok else 'FAIL'}; against the "
+            f"single-device batch-8 forward (other GEMM shapes, so other bf16 roundings; "
+            f"recorded, not held): person counts {'equal' if counts else 'DIFFER'}, worst "
+            f"field error {worst:.3e}")
+    from multihmr_tpu_torch.serve.server import build_batched_infer
+
+    single = build_batched_infer(model, max_batch=8)[0]
+    chunked = build_batched_infer(model, max_batch=4)[0]
+    payloads = [jpeg_bytes(synthetic_image(300 + i, *SERVE_SIZES[i % 3])) for i in range(16)]
+    try:
+        with Serving(model, max_batch=8, max_delay_ms=5.0, mesh=devices, warmup=False) as s:
+            cuda_lib.reset_launches()  # the DP server's run starts here
+            res, wall = run_clients(s.port, payloads, 8)
+            slaunch = _launch_tuple(cuda_lib, names)  # read just after it
+            snap = http_get_json(s.port, "/stats")
+            answers = [json.loads(b) if st == 200 else None for st, _, b, _ in res]
+            want = tuple(snap["batches"] * c for c in DP_LAUNCHES)
+            errs = {"chunk": (0.0, True), "batch8": (0.0, True)}
+            for payload, a in zip(payloads, answers):
+                if a is None:
+                    continue
+                for key, b in (("chunk", chunked), ("batch8", single)):
+                    ref = slot0_reference(b, payload, S)
+                    e, same = errs[key]
+                    same = same and ref["count"] == a["count"]
+                    for pa, pr in zip(a["persons"], ref["persons"]):
+                        e = max(e, json_err(pr, pa))
+                    errs[key] = (e, same)
+        sok = (all(a is not None for a in answers) and errs["chunk"][1]
+               and errs["chunk"][0] <= SERVE_TOL and slaunch == want)
+        log(21, f"(e) --dp server over {devices}, max_batch 8: 16 JPEGs from 8 clients in "
+                f"{wall:.2f} s, batches {snap['batches']}; each answer against its image in "
+                f"slot 0 of a single-device batch-4 forward (the chunk's shape): counts "
+                f"{'equal' if errs['chunk'][1] else 'DIFFER'}, worst field error "
+                f"{errs['chunk'][0]:.3e} (tol {SERVE_TOL:g}); launches K1/K2/K5 {slaunch} "
+                f"(want {want}) {'ok' if sok else 'FAIL'}; against slot 0 of a batch-8 forward "
+                f"(recorded): counts {'equal' if errs['batch8'][1] else 'DIFFER'}, worst "
+                f"{errs['batch8'][0]:.3e}")
+    finally:
+        single.close()
+        chunked.close()
+    if not (ok and sok):
+        raise AssertionError("(e) data parallelism in one process disagrees")
+    return {"folder": launches, "server": slaunch}
+
+
+def cli_torchrun(card, tmp):
+    """(f) the training CLI's launch path: torchrun (``python -m
+    torch.distributed.run --standalone``) with one rank, ``--n_devices 1``,
+    on NCCL: the mesh line and two finite steps."""
+    import pathlib
+
+    root = pathlib.Path(tmp) / "par_cli"
+    write_datasets(root)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "multihmr_tpu_torch.cli.train", "--backbone", "dinov2_vits14",
+           "--img_size", "448", "--batch_size", "2", "--max_people", "4",
+           "--iter_per_epoch", "2", "--n_epoch", "1", "--valset", "ehf", "--val_n", "1",
+           "--n_devices", "1", "--device", "cuda", "--name", "torchrun"]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=str(root), env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    text = p.stdout + p.stderr
+    loss = text.split("epoch 0: mean loss")[1].split()[0] if "epoch 0: mean loss" in text else "nan"
+    mesh_line = "mesh: data=1 x model=1 (heads), fsdp=False" in text
+    ok = p.returncode == 0 and mesh_line and np.isfinite(float(loss)) and \
+        os.path.exists(os.path.join(root, "ckpts", "torchrun", "ckpt_000000.pt"))
+    log(21, f"(f) torchrun --nproc_per_node 1 -m multihmr_tpu_torch.cli.train --n_devices 1 "
+            f"(vits14 at 448 px, 2 steps, NCCL): exit {p.returncode}, mesh line "
+            f"{'printed' if mesh_line else 'MISSING'}, epoch loss {loss}, {wall:.1f} s [{card}] "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        log(21, "(f) output tail:\n" + text[-3000:])
+        raise AssertionError("(f) the torchrun launch failed")
+
+
+def run_parallel(build_model, cast_backbone_bf16, cuda_lib, attention, norm, card, tmp):
+    """Phase 21: multi-device execution on one card. (a)-(d) run in two
+    spawned ranks on cuda:0 over gloo (staging what gloo does not take on
+    CUDA tensors, ``stage_collectives``); (e) and (f) in this process and a
+    torchrun child. Every part runs; the phase fails at its end if any did.
+    Returns the phase's launches per kernel (all ranks)."""
+    from multihmr_tpu_torch.parallel.launch import run_ranks
+
+    names = (attention.KERNEL, norm.KERNEL, attention.KERNEL_STD)
+    failed, launches = [], {}
+    t0 = time.perf_counter()
+
+    def part(tag, fn, *args):
+        try:
+            return fn(*args)
+        except Exception:
+            failed.append(tag)
+            log(21, f"({tag}) FAIL\n" + traceback.format_exc())
+            return None
+
+    part("kernels", check_heads_kernels, attention)
+    t_ranks = time.perf_counter()
+    partial = os.path.join(tmp, "parallel_rank")
+    res = part("a-d", run_ranks, parallel_rank, 2, (partial,), "gloo", 4, 300.0)
+    t_ranks = time.perf_counter() - t_ranks
+    if res is None:  # what the ranks finished before the failure
+        for r in range(2):
+            if os.path.exists(f"{partial}{r}.pt"):
+                o = torch.load(f"{partial}{r}.pt", weights_only=False)
+                log(21, f"rank {r} finished before the failure: " + json.dumps(
+                    {k: v for k, v in o.items()}, default=str))
+    if res is not None:
+        ok_all = True
+        for r, o in enumerate(res):
+            a, c = o["a"], o["c"]
+            ok_a = (_par_ok(a) and o["a_launches"] == PAR_LAUNCHES["heads_fwd"]
+                    and o["a_heads"] == 8)
+            log(21, f"(a) rank {r}: 896_L bf16 heads TP at model 2 ({o['a_heads']} heads per "
+                    f"rank, LayerScale {LAYERSCALE:g}), against one rank: {_par_text(a)}; "
+                    f"launches K1/K2/K5 {o['a_launches']} (want {PAR_LAUNCHES['heads_fwd']}) "
+                    f"{'ok' if ok_a else 'FAIL'}; forward wall one rank {o['a_ms'][0]:.1f} ms, "
+                    f"TP {o['a_ms'][1]:.1f} ms (both ranks on one card, 48 all-reduces through "
+                    f"gloo: no scaling figure) [{card}]")
+            ok_b = o["b4_launches"] == PAR_LAUNCHES["train4"]
+            if r == 0:
+                b = o["b4"]
+                e_terms = max(abs(b["terms"][k] - b["ref_terms"][k]) / max(abs(b["ref_terms"][k]),
+                                                                           1e-30)
+                              for k in b["ref_terms"] if b["ref_terms"][k] != 0)
+                ok_b = (ok_b and e_terms <= TRAIN_TOL and b["grad_err"][0] <= TRAIN_TOL
+                        and b["param_err"][0] <= STEP_TOL)
+                log(21, f"(b) 672_S fp32 heads TP train step at model 2 ({o['b4_heads']} heads per "
+                        f"rank; 4 blocks, LayerScale {LAYERSCALE:g}) against one rank: loss "
+                        f"{b['terms']['total']:.4f} vs {b['ref_terms']['total']:.4f} (worst term "
+                        f"rel err {e_terms:.2e}), worst gradient rel err {b['grad_err'][0]:.2e} "
+                        f"({b['grad_err'][1]}) (tol {TRAIN_TOL:g}); updated parameters where "
+                        f"|g| >= 1e-2 max |g|: worst {b['param_err'][0]:.2e} of the step "
+                        f"({b['param_err'][1]}) (tol {STEP_TOL:g})")
+            ok_b24 = (o["b24_launches"] == PAR_LAUNCHES["train24"]
+                      and o["b24"]["finite"] == 1.0 and np.isfinite(o["b24"]["total"]))
+            log(21, f"(b) rank {r}: launches K1/K3/K2 4-block fp32 step {o['b4_launches']} (want "
+                    f"{PAR_LAUNCHES['train4']}); 896_L bf16 full-depth step loss "
+                    f"{o['b24']['total']:.4f}, finite {o['b24']['finite'] == 1.0}, launches "
+                    f"{o['b24_launches']} (want {PAR_LAUNCHES['train24']}) "
+                    f"{'ok' if ok_b and ok_b24 else 'FAIL'}")
+            ok_c = _par_ok(c) and o["c_launches"] == PAR_LAUNCHES["ring_fwd"]
+            log(21, f"(c) rank {r}: 896_L bf16 ring at model 2 against the one-rank standard "
+                    f"stream: {_par_text(c)}; launches K1/K2/K5 {o['c_launches']} (the ring's "
+                    f"per-shard attention is the plain einsum, as the JAX package's) "
+                    f"{'ok' if ok_c else 'FAIL'}; forward wall one rank {o['c_ms'][0]:.1f} ms, "
+                    f"ring {o['c_ms'][1]:.1f} ms (staged shifts: no scaling figure) [{card}]")
+            d = o["d"]
+            ok_d = d["fsdp_leaves"] > 0
+            if r == 0:
+                ratio = d["moment_bytes"] / d["ref_moment_bytes"]
+                e_terms = max(abs(d["terms"][k] - d["ref_terms"][k]) / max(abs(d["ref_terms"][k]),
+                                                                           1e-30)
+                              for k in d["ref_terms"] if d["ref_terms"][k] != 0)
+                ok_d = (ok_d and e_terms <= TRAIN_TOL and d["grad_err"][0] <= TRAIN_TOL
+                        and d["param_err"][0] <= STEP_TOL and 0.45 <= ratio <= 0.6)
+                log(21, f"(d) FSDP at data 2 ({d['fsdp_leaves']} leaves of 2^16 elements and up "
+                        f"sharded), 672_S fp32 4 blocks, valid slots per rank "
+                        f"{[x['d']['valid_here'] for x in res]}, against one rank: loss "
+                        f"{d['terms']['total']:.4f} vs {d['ref_terms']['total']:.4f} (worst term "
+                        f"rel err {e_terms:.2e}), worst gradient rel err {d['grad_err'][0]:.2e} "
+                        f"({d['grad_err'][1]}) (tol {TRAIN_TOL:g}), updated parameters "
+                        f"{d['param_err'][0]:.2e} of the step (tol {STEP_TOL:g}); Adam moments "
+                        f"on rank 0 {d['moment_bytes'] / 2**20:.1f} MiB against one rank's "
+                        f"{d['ref_moment_bytes'] / 2**20:.1f} MiB ({ratio:.3f}) "
+                        f"{'ok' if ok_d else 'FAIL'}")
+            staged = ", ".join(f"{k} {c_} calls, {b_ / 2**20:.1f} MiB"
+                               for k, (c_, b_) in sorted(o["staged"].items())) or "none"
+            log(21, f"rank {r}: staged through host memory: {staged}; the rank's work took "
+                    f"{o['seconds']:.1f} s (two ranks sharing one card, staged collectives: "
+                    f"no scaling figure) [{card}]")
+            ok_all = ok_all and ok_a and ok_b and ok_b24 and ok_c and ok_d
+            for k, c_ in zip(names, o["a_launches"]):
+                launches[k] = launches.get(k, 0) + c_
+            for k, c_ in zip((attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL),
+                             tuple(map(sum, zip(o["b4_launches"], o["b24_launches"])))):
+                launches[k] = launches.get(k, 0) + c_
+        if not ok_all:
+            failed.append("a-d")
+    log(21, f"ranks spawned, ran and joined in {t_ranks:.1f} s")
+    dp = part("e", dp_in_process, build_model, cast_backbone_bf16, cuda_lib, names, card)
+    if dp is not None:
+        for counts in dp.values():
+            for k, c_ in zip(names, counts):
+                launches[k] = launches.get(k, 0) + c_
+    part("f", cli_torchrun, card, tmp)
+    log(21, f"phase 21 took {time.perf_counter() - t0:.1f} s [{card}]")
+    if failed:
+        raise AssertionError(f"phase 21 parts failed: {failed}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3657,16 +4269,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         io_figures = phase(20, run_io, build_model, named_config, demo, cast_backbone_bf16,
                            cuda_lib, attention, norm, card, tmp, ref and ref[0])
+        torch.cuda.empty_cache()
+        par = phase(21, run_parallel, build_model, cast_backbone_bf16, cuda_lib, attention, norm,
+                    card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref, anny, serving, exported, io_figures):
+                          cli_launches, ref, anny, serving, exported, io_figures, par):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
     bwd_err, two_pass = bwd_check
     launches.update(two_pass)  # K4a/K4b: the two-pass path of phase 8
     launches[attention.KERNEL_STD] = cli_launches[attention.KERNEL_STD]  # K5: phase 14's ring run
+    for name, count in par.items():  # phase 21's multi-rank and data-parallel runs
+        launches[name] = launches.get(name, 0) + count
     for label, (ms, peak) in steps.items():
         log("end", f"896_L bf16 train step, batch 2, {label}: {ms:.1f} ms, peak memory "
                    f"{peak:.2f} GiB [{card}]")

@@ -13,7 +13,9 @@ coalesces requests into one fixed-shape batch on the card
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
 card it raises unless given ``--device cpu``) and ``--tp_mode`` (``heads``:
 the ViT's channels-major stream, K1 + K2; ``ring``: the standard one, K5).
-``--dp`` (data-parallel serving, ROADMAP M11) is not ported and raises. An
+``--dp`` serves data-parallel over every local card (parallel/infer.py: a
+replica of the weights each, each batch cut into equal chunks), ``max_batch``
+rounded up to a multiple of their count; not with ``--artifact``. An
 Anny-family name is refused at start: the server reads back
 ``extract_persons(out, fields)``, which ``MultiHMRAnny`` does not take (the
 JAX server fails on every request for such a name).
@@ -58,7 +60,9 @@ def parse_args(argv=None):
                    help="skip mesh-tensor readback (disables ?render=1); "
                         "cuts per-request device->host tail latency")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel serving over all local cards (not ported: M11)")
+                   help="data-parallel serving over all local cards (--device cuda; the "
+                   "one device otherwise): a replica of the weights on each, max_batch "
+                   "rounded up to a multiple of their count")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--tp_mode", type=str, default="heads", choices=("heads", "ring"))
     return p.parse_args(argv)
@@ -93,9 +97,8 @@ def _artifact_meta(args) -> dict:
 
 def build_server(args):
     """(server, batcher) for parsed flags; raises for what is not ported."""
-    if args.dp:
-        raise NotImplementedError("--dp (data-parallel serving) is not ported yet: "
-                                  "ROADMAP M11")
+    if args.dp and args.artifact is not None:
+        raise ValueError("--dp and --artifact are mutually exclusive")
     meta = None if args.artifact is None else _artifact_meta(args)
     if "anny" in args.model_name:
         raise ValueError(
@@ -130,11 +133,20 @@ def build_server(args):
         if args.ckpt is None:
             print("WARNING: no checkpoint given — running with random weights")
         cast_backbone_bf16(model.net)  # inference: bf16 weight storage, after the load
+    mesh = None
+    if args.dp:  # every local card (JAX: make_mesh(model_parallel=1) over all chips)
+        device = torch.device(args.device)
+        mesh = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if device.type == "cuda" else [device])
+        n = len(mesh)
+        if args.max_batch % n:
+            args.max_batch = -(-args.max_batch // n) * n
+            print(f"--dp: rounding max_batch up to {args.max_batch} ({n} devices)")
     return make_server(
         model, port=args.port, max_batch=args.max_batch,
         det_thresh=args.det_thresh, nms_kernel_size=args.nms_kernel_size,
         max_delay_ms=args.max_delay_ms, forward_fn=forward_fn, json_only=args.json_only,
-        max_queue=args.max_queue, deadline_s=args.deadline_s,
+        mesh=mesh, max_queue=args.max_queue, deadline_s=args.deadline_s,
     )
 
 

@@ -21,8 +21,19 @@ in the reference's layout (``smplx/smplx2smpl.pkl``, ``smpl/...``) or flat:
 (the MPJPE metrics) and ``smpl/SMPL_{MALE,FEMALE}.pkl`` (else a synthetic
 SMPL, with a warning).
 
-Flags of features not ported yet raise with the ROADMAP item that ports them:
-more than one device, ``--model_parallel`` or ``--fsdp`` (M11).
+Several devices (``--n_devices N``, ``--model_parallel``, ``--fsdp 1``): one
+rank per device, launched by ``torchrun --nproc_per_node N`` (N must equal
+``--n_devices``), on NCCL for ``--device cuda`` and gloo for ``cpu``::
+
+    torchrun --nproc_per_node 4 -m multihmr_tpu_torch.cli.train ... \
+        --n_devices 4 --model_parallel 2 --fsdp 1
+
+Under ``torchrun`` the ranks form a (data, model) mesh (parallel/sharding.py)
+whatever ``--n_devices`` is, one rank included; each rank loads every batch
+and trains on its ``data`` slice; rank 0 prints, evaluates (on one device,
+with the gathered weights) and writes the checkpoints, in the single-device
+formats. The JAX CLI's checks hold: ``--n_devices`` divisible by
+``--model_parallel``, ``--batch_size`` by the data axis.
 """
 
 from __future__ import annotations
@@ -138,23 +149,27 @@ def build_argparser():
         "--clip_grad", type=float, default=0.0,
         help="global grad-norm clip (0 = off, reference parity)",
     )
-    # parallelism: one device only until ROADMAP M11
+    # parallelism: one rank per device under torchrun
     p.add_argument(
         "--n_devices", type=int, default=0,
-        help="devices to train on (0 = all visible; only 1 is ported)",
+        help="devices to train on, one torchrun rank each (0 = the launch's ranks: "
+        "WORLD_SIZE under torchrun, else 1)",
     )
     p.add_argument(
         "--model_parallel", type=int, default=1,
-        help="size of the mesh 'model' axis (only 1 is ported)",
+        help="size of the mesh 'model' axis: Megatron TP of the ViT (--tp_mode heads) "
+        "or ring attention over sequence shards (ring)",
     )
     p.add_argument(
         "--tp_mode", type=str, default="heads", choices=("heads", "ring"),
         help="'heads': the ViT's channels-major stream (K1, K2); 'ring': "
-        "its standard stream (K5). On one device neither shards anything",
+        "its standard stream (K5). With --model_parallel > 1 'heads' shards "
+        "the heads, 'ring' the sequence",
     )
     p.add_argument(
         "--fsdp", type=int, default=0,
-        help="1 = shard params and Adam moments (not ported yet)",
+        help="1 = shard the large params and their Adam moments over the data axis "
+        "(FSDP2)",
     )
     # logging / ckpt
     p.add_argument("--name", type=str, default="run")
@@ -181,12 +196,46 @@ def build_argparser():
     return p
 
 
-def _unported(args, n_dev: int) -> str | None:
-    """The reason a flag asks for what is not ported yet, or None."""
-    if n_dev > 1 or args.model_parallel > 1 or args.fsdp:
-        return ("multi-device training (--n_devices > 1, --model_parallel > 1, --fsdp 1) "
-                "is not ported yet: ROADMAP M11")
-    return None
+def _mesh(args, device: torch.device):
+    """(mesh or None, data-axis size, this rank's device). The JAX CLI's
+    checks first (``cli/train.py:228-243``); then, under ``torchrun`` (or in
+    a rank whose process group is up), the default process group and the
+    (data, model) mesh; one process without a launcher trains on one
+    device."""
+    import torch.distributed as dist
+
+    launched = dist.is_initialized() or "RANK" in os.environ
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    n_dev = args.n_devices or world
+    if n_dev % args.model_parallel:
+        raise ValueError(f"--n_devices {n_dev} is not divisible by --model_parallel "
+                         f"{args.model_parallel}")
+    data = n_dev // args.model_parallel
+    if args.batch_size % data:
+        raise ValueError(f"batch_size {args.batch_size} must divide over the data axis ({data})")
+    if not launched:
+        if n_dev > 1:
+            raise ValueError(f"--n_devices {n_dev}: one rank per device, launch with "
+                             f"torchrun --nproc_per_node {n_dev} -m multihmr_tpu_torch.cli.train")
+        return None, 1, device
+    if world != n_dev:
+        raise ValueError(f"--n_devices {n_dev} but the launch has {world} ranks "
+                         f"(torchrun --nproc_per_node {n_dev})")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        from multihmr_tpu_torch.parallel.launch import init_from_env
+
+        init_from_env("nccl" if device.type == "cuda" else "gloo")
+    from multihmr_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(n_dev, model_parallel=args.model_parallel, device_type=device.type)
+    if dist.get_rank() == 0:
+        print(f"mesh: data={data} x model={args.model_parallel} ({args.tp_mode}), "
+              f"fsdp={bool(args.fsdp)}")
+    return mesh, data, device
 
 
 def _is_port_checkpoint(path: str) -> bool:
@@ -228,10 +277,8 @@ def main(argv=None):
     from multihmr_tpu_torch.utils.logging import MetricsLogger
 
     device = torch.device(args.device)
-    n_dev = args.n_devices or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    reason = _unported(args, n_dev)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    mesh, data_size, device = _mesh(args, device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
     if device.type == "cuda":  # the geometry runs in full fp32, as the JAX package's HIGHEST
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -246,15 +293,16 @@ def main(argv=None):
         max_people=args.max_people,
         compute_dtype="bfloat16" if args.amp else "float32",
     )
+    # the per-device batch: the activations one device holds
     remat, policy, report = resolve_remat_flags(
-        args.remat, args.remat_policy, cfg, args.batch_size,
+        args.remat, args.remat_policy, cfg, max(1, args.batch_size // data_size),
         hbm_limit_bytes=device_hbm_limit(device))
-    if report is not None:
+    if report is not None and lead:
         print(f"remat auto: estimates {report['estimates_gb']} GB vs "
               f"{report['budget_bytes'] / 1e9:.1f} GB budget -> "
               f"{'remat=' + policy if remat else 'no remat'}")
     cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
-    if smplx_asset() is None:
+    if smplx_asset() is None and lead:
         print("WARNING: SMPL-X assets not found — using the synthetic body model")
     jax_ckpt = args.pretrained and args.pretrained.endswith(".msgpack")
     reference = args.pretrained and not jax_ckpt and not _is_port_checkpoint(args.pretrained)
@@ -262,7 +310,7 @@ def main(argv=None):
     # corrupt or mismatched file raises before the model or a log exists
     state = load_jax_checkpoint(args.pretrained, cfg)[0] if jax_ckpt else None
     model = build_model(device=device, seed=0, cfg=cfg, tp_mode=args.tp_mode,
-                        checkpoint=args.pretrained if reference else None)
+                        checkpoint=args.pretrained if reference else None, mesh=mesh)
     bm = model.body_model
     # GT targets run through an 11-beta neutral SMPL-X like the reference
     # (train.py:41-43, 99-110), independent of the model's num_betas.
@@ -271,11 +319,16 @@ def main(argv=None):
     if args.pretrained and not reference:
         if state is None:
             state, _ = load_checkpoint(args.pretrained)
-        model.net.load_state_dict(state, strict=True)
+        if mesh is None:
+            model.net.load_state_dict(state, strict=True)
+        else:
+            from multihmr_tpu_torch.parallel.sharding import load_full_state_dict
+
+            load_full_state_dict(model.net, state, mesh, model.tp_mode)
     elif not args.pretrained:
         _apply_mean_params(model.net, cfg, smplx_dir())
 
-    logger = MetricsLogger(args.logdir, args.name)
+    logger = MetricsLogger(args.logdir, args.name) if lead else None
     weights = LossWeights(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(LossWeights)})
 
@@ -371,8 +424,19 @@ def main(argv=None):
         return all_res if len(valsets) > 1 else all_res.get(valsets[0])
 
     if args.eval_only:
-        run_eval(model, 0)
-        logger.close()
+        if mesh is None:
+            run_eval(model, 0)
+        else:  # rank 0 evaluates the gathered weights on one device
+            from multihmr_tpu_torch.parallel.sharding import gather_state_dict
+
+            full = gather_state_dict(model.net, mesh, model.tp_mode)
+            if lead:
+                twin = model.unsharded()
+                twin.net.load_state_dict(full)
+                run_eval(twin, 0)
+            torch.distributed.barrier()
+        if logger is not None:
+            logger.close()
         return
 
     from multihmr_tpu_torch.data.bedlam import BEDLAM
@@ -412,23 +476,26 @@ def main(argv=None):
         model, optimizer, weights=weights,
         checkpoint_dir=os.path.join(args.ckptdir, args.name),
         nb_max_ckpt=args.nb_max_ckpt, gt_body_model=gt_bm, clip_grad=args.clip_grad,
-        log_every_steps=args.log_freq,
+        log_every_steps=args.log_freq, mesh=mesh, fsdp=bool(args.fsdp),
     )
     start_epoch = 0
     if args.resume:
         restored = trainer.restore()
         if restored is None:
-            print("--resume: no saved train state found — starting fresh")
+            trainer.log_fn("--resume: no saved train state found — starting fresh")
         else:
             start_epoch = restored
-            print(f"--resume: restored epoch {start_epoch - 1}, "
-                  f"continuing at epoch {start_epoch}")
+            trainer.log_fn(f"--resume: restored epoch {start_epoch - 1}, "
+                           f"continuing at epoch {start_epoch}")
     # --max_iter caps total optimizer steps via the epoch count
     # (reference train.py:590: max_epochs = max_iter // n_iters_per_epoch)
     epochs = args.max_iter // args.iter_per_epoch if args.max_iter > 0 else args.n_epoch
     trainer.fit(data_iter, epochs=epochs, eval_fn=run_eval, start_epoch=start_epoch)
-    logger.close()
+    if logger is not None:
+        logger.close()
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():  # the torchrun launch's group
+        torch.distributed.destroy_process_group()

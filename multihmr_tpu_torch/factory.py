@@ -78,13 +78,28 @@ def _net(net_cls, cfg, tp_mode: str, seed: int, state: Optional[dict]):
     return net
 
 
+def _on_mesh(net_cls, cfg, tp_mode: str, net, mesh):
+    """This rank's net on ``mesh``: the full ``net``'s weights cut into the
+    rank's shards (``parallel.sharding.shard_state_dict``)."""
+    if mesh is None:
+        return net
+    from multihmr_tpu_torch.parallel.sharding import shard_state_dict
+
+    with torch.device("meta"):
+        sharded = net_cls(cfg, tp_mode=tp_mode, mesh=mesh)
+    sharded.load_state_dict(shard_state_dict(net.state_dict(), mesh, tp_mode), strict=True,
+                            assign=True)
+    return sharded
+
+
 def build_model(name: str = "multiHMR_896_L", device="cuda", seed: int = 0,
-                cfg=None, tp_mode: str = "heads", checkpoint=None):
+                cfg=None, tp_mode: str = "heads", checkpoint=None, mesh=None):
     """MultiHMR (MultiHMRAnny for an Anny-family name) on ``device``, with the
     weights of a reference ``checkpoint`` (path or loaded dict) or else
     seeded random ones. ``cfg`` overrides the named configuration;
     ``tp_mode`` "ring" runs the ViT's standard stream (K5), "heads" the
-    channels-major one (K1, K2)."""
+    channels-major one (K1, K2). ``mesh``: this rank's shards of the same
+    weights, the ViT sharded over the mesh's ``model`` axis."""
     from multihmr_tpu_torch.io import checkpoint as ckpt
 
     device = torch.device(device)
@@ -92,16 +107,18 @@ def build_model(name: str = "multiHMR_896_L", device="cuda", seed: int = 0,
         cfg = cfg if cfg is not None else anny_config(name)
         state = None if checkpoint is None else ckpt.convert_reference_checkpoint_anny(
             checkpoint, cfg)
-        net = _net(MultiHMRAnnyNet, cfg, tp_mode, seed, state)
-        return MultiHMRAnny(cfg, load_anny_model(device), net=net.to(device).eval())
+        net = _on_mesh(MultiHMRAnnyNet, cfg, tp_mode,
+                       _net(MultiHMRAnnyNet, cfg, tp_mode, seed, state), mesh)
+        return MultiHMRAnny(cfg, load_anny_model(device), net=net.to(device).eval(),
+                            tp_mode=tp_mode, mesh=mesh)
     if cfg is None:
         if name not in SMPLX_NAMES:
             raise KeyError(f"{name!r} is not a ported configuration; known: {SMPLX_NAMES}")
         cfg = named_config(name)
     state = None if checkpoint is None else ckpt.convert_reference_checkpoint(checkpoint, cfg)
-    net = _net(MultiHMRNet, cfg, tp_mode, seed, state)
+    net = _on_mesh(MultiHMRNet, cfg, tp_mode, _net(MultiHMRNet, cfg, tp_mode, seed, state), mesh)
     bm = load_body_model(device, cfg.num_betas)
-    return MultiHMR(cfg, bm, net=net.to(device).eval())
+    return MultiHMR(cfg, bm, net=net.to(device).eval(), tp_mode=tp_mode, mesh=mesh)
 
 
 def build_host_model(name: str) -> MultiHMR:

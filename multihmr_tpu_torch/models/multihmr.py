@@ -17,6 +17,8 @@ batch statistics.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import warnings
 from typing import Optional
 
@@ -65,14 +67,14 @@ class RegressionMLP(nn.Module):
 class MultiHMRNet(nn.Module):
     """Backbone + detection + HPH: everything but the body model."""
 
-    def __init__(self, cfg: ModelConfig, tp_mode: str = "heads"):
+    def __init__(self, cfg: ModelConfig, tp_mode: str = "heads", mesh=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.vit.embed_dim
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.backbone = DINOv2ViT(cfg.vit, cfg.grid_size, self.compute_dtype,
                                   remat_policy=cfg.remat_policy if cfg.remat else None,
-                                  tp_mode=tp_mode)
+                                  tp_mode=tp_mode, mesh=mesh)
         self.mlp_classif = RegressionMLP(d, d, 1)
         self.mlp_offset = RegressionMLP(d, d, 2)
         self.x_attention_head = HPH(cfg)
@@ -159,14 +161,21 @@ class MultiHMR:
     """Network + body model. ``forward`` returns ``[B, K, ...]`` slots with
     ``out['det'].valid`` the person mask. ``tp_mode`` picks the ViT's stream
     for a net built here: "heads" the channels-major one, "ring" the
-    standard one (one device: no mesh)."""
+    standard one. ``mesh`` (a (data, model) ``DeviceMesh``,
+    parallel/sharding.py) shards the ViT over its ``model`` axis, heads or
+    sequence by ``tp_mode``: the net's weights are then this rank's shards
+    (``shard_state_dict``) and ``x`` this rank's slice of the batch. The
+    batch is one fused forward, with or without a mesh (the JAX package's
+    ``batch_mode="map"`` is not ported)."""
 
     def __init__(self, cfg: ModelConfig, body_model: BodyModel,
                  net: Optional[MultiHMRNet] = None, person_center_joint_names=None,
-                 tp_mode: str = "heads"):
+                 tp_mode: str = "heads", mesh=None):
         self.cfg = cfg
         self.body_model = body_model
-        self.net = net if net is not None else MultiHMRNet(cfg, tp_mode=tp_mode)
+        self.net = net if net is not None else MultiHMRNet(cfg, tp_mode=tp_mode, mesh=mesh)
+        self.mesh = mesh
+        self.tp_mode = "heads" if self.net.backbone.transposed else "ring"  # the net's own
         self.smpl_layer = SMPLXCameraLayer(
             body_model, person_center=cfg.person_center, joint_names=person_center_joint_names)
 
@@ -175,6 +184,38 @@ class MultiHMR:
         out = self.net(x, K, det_thresh=det_thresh, nms_kernel_size=nms_kernel_size,
                        is_training=is_training, gt_det=gt_det)
         return self.apply_body_model(out, K)
+
+    def replica(self, device) -> "MultiHMR":
+        """This model on ``device``: itself where it is already there, else a
+        copy of its weights (their dtypes kept) and body model there."""
+        device = torch.device(device)
+        if device == self.body_model.v_template.device:
+            return self
+        if self.mesh is not None:
+            raise ValueError("replica() copies a single-device model, not a rank's shards")
+        twin = copy.copy(self)
+        twin.body_model = dataclasses.replace(self.body_model, **{
+            f.name: getattr(self.body_model, f.name).to(device)
+            for f in dataclasses.fields(self.body_model)
+            if isinstance(getattr(self.body_model, f.name), torch.Tensor)})
+        twin.smpl_layer = copy.copy(self.smpl_layer)
+        twin.smpl_layer.model = twin.body_model
+        with torch.device("meta"):
+            twin.net = MultiHMRNet(self.cfg, tp_mode=self.tp_mode)
+        twin.net.load_state_dict({k: v.to(device) for k, v in self.net.state_dict().items()},
+                                 strict=True, assign=True)
+        twin.net.train(self.net.training)
+        return twin
+
+    def unsharded(self) -> "MultiHMR":
+        """A single-device twin (no mesh) of this model on this rank's
+        device, sharing its body model; its net's weights are uninitialised:
+        load a full state dict into it."""
+        twin = copy.copy(self)
+        device = self.body_model.v_template.device
+        twin.net = MultiHMRNet(self.cfg, tp_mode=self.tp_mode).to(device)
+        twin.mesh = None
+        return twin
 
     def apply_body_model(self, out: dict, K) -> dict:
         """Run the body model on all ``B*K`` slots and merge v3d, j3d, j2d,

@@ -112,13 +112,13 @@ def _default_init_pose(n_joints: int) -> np.ndarray:
 class AnnyEncoder(nn.Module):
     """ViT, per-patch detection logits, and K from the regressed FOV."""
 
-    def __init__(self, cfg: AnnyConfig, tp_mode: str = "heads"):
+    def __init__(self, cfg: AnnyConfig, tp_mode: str = "heads", mesh=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.vit.embed_dim
         self.backbone = DINOv2ViT(cfg.vit, cfg.grid_size, DTYPES[cfg.compute_dtype],
                                   remat_policy=cfg.remat_policy if cfg.remat else None,
-                                  tp_mode=tp_mode)
+                                  tp_mode=tp_mode, mesh=mesh)
         self.mlp_det = RegressionMLP(d, d, 1)
         self.mlp_fov_unique = RegressionMLP(d, d, 1)
 
@@ -173,11 +173,11 @@ class MultiHMRAnnyNet(nn.Module):
     checkpoint carries both, and its ``init_body_pose`` need not be
     :func:`_default_init_pose`."""
 
-    def __init__(self, cfg: AnnyConfig, tp_mode: str = "heads"):
+    def __init__(self, cfg: AnnyConfig, tp_mode: str = "heads", mesh=None):
         super().__init__()
         self.cfg = cfg
         X, J, g = cfg.xat_dim, cfg.n_joints, cfg.grid_size
-        self.encoder = AnnyEncoder(cfg, tp_mode=tp_mode)
+        self.encoder = AnnyEncoder(cfg, tp_mode=tp_mode, mesh=mesh)
         self.dec_to_token = nn.Linear(cfg.vit.embed_dim, X)
         self.decoder = AnnyHPH(cfg)
         self.mlp_offset = RegressionMLP(X, X, 2)
@@ -254,13 +254,18 @@ class MultiHMRAnnyNet(nn.Module):
 class MultiHMRAnny:
     """Network + Anny body model. ``forward`` returns ``[B, K, ...]`` slots
     with ``out['det'].valid`` the person mask. Meshes are re-centred on the
-    bone labelled ``cfg.person_center``."""
+    bone labelled ``cfg.person_center``. ``mesh``: the ViT's attention
+    sharded over the mesh's ``model`` axis (``tp_mode`` "heads" or "ring",
+    models/vit.py), the net's weights this rank's shards
+    (``parallel.sharding.shard_state_dict``); the batch is this rank's."""
 
     def __init__(self, cfg: AnnyConfig, body_model: AnnyModel,
-                 net: Optional[MultiHMRAnnyNet] = None, tp_mode: str = "heads"):
+                 net: Optional[MultiHMRAnnyNet] = None, tp_mode: str = "heads", mesh=None):
         self.cfg = cfg
         self.body_model = body_model
-        self.net = net if net is not None else MultiHMRAnnyNet(cfg, tp_mode=tp_mode)
+        self.net = net if net is not None else MultiHMRAnnyNet(cfg, tp_mode=tp_mode, mesh=mesh)
+        self.mesh = mesh
+        self.tp_mode = "heads" if self.net.encoder.backbone.transposed else "ring"
         self.person_center_idx = body_model.person_center_index(cfg.person_center)
         self._pheno_idx = body_model.used_phenotype_indices()
 

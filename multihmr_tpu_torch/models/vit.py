@@ -24,8 +24,8 @@ changes outside tests.
     heads-merged ``[B, N, D]`` the output projection reads, and the block
     LayerNorms are plain fp32 ``F.layer_norm`` followed by a cast, as the
     JAX ``Block`` has them: K5 once per block, no K1 and no K2. Dense layers
-    are ``F.linear``. ``tp_mode`` only picks the stream here: there is no
-    mesh, so "ring" runs no ring.
+    are ``F.linear``. Without a mesh ``tp_mode`` only picks the stream:
+    "ring" runs no ring.
 
 Both streams have the same parameter names (those of the reference
 checkpoints) and draw the same seeded init in the same order.
@@ -36,6 +36,26 @@ in fp32 and tanh-approximate in bf16, and an fp32 final LayerNorm.
 The JAX stream pre-pad (``models/vit.py:378-398, 414-415``) is ported at
 the port's own length: the JAX length ``transposed_padded_len`` and its 5 %
 overhead gate are TPU tiling and are not ported.
+
+Under a mesh whose ``model`` axis has ``P > 1`` ranks (``mesh=``, one
+rank per device, parallel/sharding.py):
+
+  * "heads": Megatron tensor parallelism in the channels-major blocks. Each
+    rank keeps ``H/P`` heads: its column-parallel qkv yields
+    ``[B, 3, H/P, Dh, N]``, the K1 operand view, with no copy (the qkv rows
+    follow the heads, ``shard_state_dict``); the row-parallel proj sums its
+    partial products over ``model`` and adds its bias once; the MLP pairs
+    fc1 (column) with fc2 (row) the same way. The stream stays replicated,
+    so K2 runs twice per block on every rank, and K1 once over ``H/P`` heads;
+  * "ring": the standard stream is padded to a multiple of ``P`` tokens and
+    each rank keeps its sequence shard through all the blocks (the weights
+    stay replicated): the attention is exact ring attention over the shards
+    (parallel/ring_attention.py, pad keys masked by ``kv_len``), everything
+    else works token by token, and the shards are gathered before the final
+    norm. Each rank's gradient of a block parameter then holds its tokens'
+    share, which the trainer sums over ``model``.
+
+A model axis of 1, or no mesh, runs the single-device path.
 
 Training: the attention backward is K3 (the standard stream copies into its
 channels-major layout) and the LayerNorm backward analytic torch ops.
@@ -55,8 +75,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from multihmr_tpu_torch.config import ViTConfig
-from multihmr_tpu_torch.ops.attention import attention_qkv, flash_attention_qkv_t, padded_len
+from multihmr_tpu_torch.ops.attention import (
+    _unpack,
+    attention_qkv,
+    flash_attention_qkv_t,
+    padded_len,
+)
 from multihmr_tpu_torch.ops.norm import layernorm_cm
+from multihmr_tpu_torch.parallel import comm
+from multihmr_tpu_torch.parallel.ring_attention import ring_attention
+from multihmr_tpu_torch.parallel.sharding import axis_group
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -75,19 +103,25 @@ def _gelu(x):
 
 
 class TLinear(nn.Module):
-    """Dense layer on ``[B, in, N]`` → ``[B, out, N]``; weight ``[out, in]``."""
+    """Dense layer on ``[B, in, N]`` → ``[B, out, N]``; weight ``[out, in]``.
+    ``reduce_group``: row-parallel, the partial products summed over that
+    group before the bias is added."""
 
-    def __init__(self, fan_in: int, fan_out: int):
+    def __init__(self, fan_in: int, fan_out: int, reduce_group=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(fan_out, fan_in))
         self.bias = nn.Parameter(torch.empty(fan_out))
+        self.reduce_group = reduce_group
 
     def forward(self, x):
         # baddbmm writes [B, out, N] directly; torch.matmul(w, x) would fold
         # to (x^T w^T)^T and pay a transpose copy of every output
         B = x.shape[0]
         w = self.weight.to(x.dtype).expand(B, -1, -1)
-        return torch.baddbmm(self.bias.to(x.dtype)[:, None], w, x)
+        if self.reduce_group is None:
+            return torch.baddbmm(self.bias.to(x.dtype)[:, None], w, x)
+        y = comm.reduce_from_model(torch.bmm(w, x), self.reduce_group)
+        return y + self.bias.to(x.dtype)[:, None]
 
 
 class TLayerNorm(nn.Module):
@@ -112,41 +146,57 @@ class TLayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)[None, :, None]
 
 
+def _tp_size(group) -> int:
+    return 1 if group is None else comm.group_size(group)
+
+
 class TAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    """``group``: the ``model`` axis of tensor parallelism (None: one
+    device); this rank then holds ``num_heads / P`` heads."""
+
+    def __init__(self, dim: int, num_heads: int, group=None):
         super().__init__()
-        self.num_heads = num_heads
-        self.qkv = TLinear(dim, 3 * dim)
-        self.proj = TLinear(dim, dim)
+        p = _tp_size(group)
+        self.group = group
+        self.num_heads = num_heads // p  # this rank's heads
+        self.head_dim = dim // num_heads
+        self.qkv = TLinear(dim, 3 * dim // p)
+        self.proj = TLinear(dim // p, dim, reduce_group=group)
 
     def forward(self, x, kv_len=None):  # [B, D, N]; tokens >= kv_len are pad
-        B, D, N = x.shape
-        h = self.num_heads
-        qkv = self.qkv(x).reshape(B, 3, h, D // h, N)  # a view: token dim untouched
+        B, _, N = x.shape
+        h, dh = self.num_heads, self.head_dim
+        if self.group is not None:
+            x = comm.copy_to_model(x, self.group)
+        qkv = self.qkv(x).reshape(B, 3, h, dh, N)  # a view: token dim untouched
         out = flash_attention_qkv_t(qkv, kv_len=kv_len)  # [B, h, Dh, N]
-        return self.proj(out.reshape(B, D, N))
+        return self.proj(out.reshape(B, h * dh, N))
 
 
 class TMlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, group=None):
         super().__init__()
-        self.fc1 = TLinear(dim, hidden)
-        self.fc2 = TLinear(hidden, dim)
+        p = _tp_size(group)
+        self.group = group
+        self.fc1 = TLinear(dim, hidden // p)
+        self.fc2 = TLinear(hidden // p, dim, reduce_group=group)
 
     def forward(self, x):
+        if self.group is not None:
+            x = comm.copy_to_model(x, self.group)
         return self.fc2(_gelu(self.fc1(x)))
 
 
 class TBlock(nn.Module):
-    def __init__(self, cfg: ViTConfig, remat_mlp: bool = False):
+    def __init__(self, cfg: ViTConfig, remat_mlp: bool = False, group=None):
         super().__init__()
         self.remat_mlp = remat_mlp
         d = cfg.embed_dim
         self.norm1 = TLayerNorm(d)
-        self.attn = TAttention(d, cfg.num_heads)
+        self.attn = TAttention(d, cfg.num_heads, group)
         self.ls1 = TLayerScale(d, cfg.layerscale_init)
         self.norm2 = TLayerNorm(d)
-        self.mlp = TMlp(d, int(d * cfg.mlp_ratio))
+        self.mlp = TMlp(d, int(d * cfg.mlp_ratio), group)
         self.ls2 = TLayerScale(d, cfg.layerscale_init)
 
     def forward(self, x, kv_len=None):
@@ -186,17 +236,26 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    """``ring_group``: the ``model`` axis the sequence is sharded over (None:
+    one device); ``x`` is then this rank's shard of the tokens."""
+
+    def __init__(self, dim: int, num_heads: int, ring_group=None):
         super().__init__()
         self.num_heads = num_heads
+        self.ring_group = ring_group
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x):  # [B, N, D]
+    def forward(self, x, kv_len=None):  # [B, N, D]; global tokens >= kv_len are pad
         B, N, D = x.shape
         h = self.num_heads
         qkv = _dense(self.qkv, x).reshape(B, N, 3, h, D // h)  # a view
-        return _dense(self.proj, attention_qkv(qkv))  # [B, N, D] heads-merged
+        if self.ring_group is None:
+            out = attention_qkv(qkv)  # [B, N, D] heads-merged
+        else:
+            out = ring_attention(*_unpack(qkv), self.ring_group, kv_len=kv_len)
+            out = out.transpose(1, 2).reshape(B, N, D)
+        return _dense(self.proj, out)
 
 
 class Mlp(nn.Module):
@@ -212,19 +271,19 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Standard-stream twin of :class:`TBlock`: the same parameter names."""
 
-    def __init__(self, cfg: ViTConfig, remat_mlp: bool = False):
+    def __init__(self, cfg: ViTConfig, remat_mlp: bool = False, group=None):
         super().__init__()
         self.remat_mlp = remat_mlp
         d = cfg.embed_dim
         self.norm1 = nn.LayerNorm(d, eps=1e-6)
-        self.attn = Attention(d, cfg.num_heads)
+        self.attn = Attention(d, cfg.num_heads, group)
         self.ls1 = LayerScale(d, cfg.layerscale_init)
         self.norm2 = nn.LayerNorm(d, eps=1e-6)
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
         self.ls2 = LayerScale(d, cfg.layerscale_init)
 
-    def forward(self, x):
-        x = x + self.ls1(self.attn(_layer_norm(self.norm1, x)))
+    def forward(self, x, kv_len=None):
+        x = x + self.ls1(self.attn(_layer_norm(self.norm1, x), kv_len))
         return x + self.ls2(self._mlp(_layer_norm(self.norm2, x)))
 
     def _mlp(self, y):
@@ -243,10 +302,11 @@ class DINOv2ViT(nn.Module):
     """NHWC normalized image ``[B, S, S, 3]`` → final-norm ``patch_tokens
     [B, N, D]`` and ``cls_token [B, D]`` in ``dtype``. ``pos_embed`` is stored
     already resampled to the working grid. The blocks run the channels-major
-    stream with ``tp_mode`` "heads", the standard one with "ring"."""
+    stream with ``tp_mode`` "heads", the standard one with "ring"; ``mesh``
+    shards them over its ``model`` axis (heads or sequence)."""
 
     def __init__(self, cfg: ViTConfig, grid_size: int, dtype=torch.bfloat16,
-                 remat_policy: str | None = None, tp_mode: str = "heads"):
+                 remat_policy: str | None = None, tp_mode: str = "heads", mesh=None):
         super().__init__()
         if remat_policy not in (None, "block", "mlp"):
             raise ValueError(f"unknown remat_policy {remat_policy!r} "
@@ -262,8 +322,14 @@ class DINOv2ViT(nn.Module):
         self.patch_embed = nn.Linear(p * p * 3, d)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + grid_size * grid_size, d))
+        self.group = axis_group(mesh, "model")  # None: the single-device path
+        p = _tp_size(self.group)
+        if self.transposed and cfg.num_heads % p:
+            raise ValueError(f"num_heads={cfg.num_heads} not divisible by mesh axis "
+                             f"'model'={p}")
         block_cls = TBlock if self.transposed else Block
-        self.blocks = nn.ModuleList(block_cls(cfg, remat_mlp=remat_policy == "mlp")
+        self.blocks = nn.ModuleList(block_cls(cfg, remat_mlp=remat_policy == "mlp",
+                                              group=self.group)
                                     for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=1e-6)
 
@@ -297,16 +363,24 @@ class DINOv2ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(B, 1, -1)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dt)
 
+        n_tok = 1 + n
+        ring = self.group is not None and not self.transposed
         args = ()
         if self.transposed:  # [B, D, padded_len(1+N)] channels-major, zero pad tokens
-            n_tok = 1 + n
             tokens = F.pad(tokens.transpose(1, 2), (0, padded_len(n_tok) - n_tok)).contiguous()
             args = (n_tok,)
+        elif ring:  # this rank's shard of the tokens, padded to a multiple of P
+            p = comm.group_size(self.group)
+            n_pad = -(-n_tok // p) * p
+            tokens = comm.split(F.pad(tokens, (0, 0, 0, n_pad - n_tok)), 1, self.group)
+            args = (n_tok if n_pad != n_tok else None,)
         for blk in self.blocks:
             tokens = (_maybe_checkpoint(blk, tokens, *args) if self.remat_block
                       else blk(tokens, *args))
         if self.transposed:
             tokens = tokens[:, :, :n_tok].transpose(1, 2)  # drop the pad: [B, 1+N, D]
+        elif ring:
+            tokens = comm.gather(tokens, 1, self.group)[:, :n_tok]
 
         tokens = F.layer_norm(tokens.float(), (tokens.shape[-1],),
                               self.norm.weight.float(), self.norm.bias.float(), 1e-6)

@@ -15,10 +15,12 @@ Counterpart of ``multihmr_tpu/ops/attention.py``, in two layouts:
     ``csrc/flash_fwd_std.cu`` (K5); the backward copies into K3's layout, as
     the JAX package's ``_flash_bwd_impl`` does, padded to a multiple of 8
     tokens. ``attention_qkv`` is the one
-    entry the standard-stream ViT calls; the JAX package's per-tensor entries
-    (``flash_attention``, ``flash_attention_trainable``,
-    ``flash_attention_merged``, ``multi_head_attention``,
-    ``attention_merged``) have no caller in the port and are not ported.
+    entry the standard-stream ViT calls; ``attention_merged`` and
+    ``multi_head_attention`` are the per-tensor entries of
+    ``parallel/ring_attention.py``'s dispatchers, through it. The JAX
+    package's other per-tensor entries (``flash_attention``,
+    ``flash_attention_trainable``, ``flash_attention_merged``) have no
+    caller in the port and are not ported.
 
 On a CUDA tensor each entry launches its kernel; on a CPU tensor it runs the
 plain version. There is no fallback: a CUDA tensor a kernel does not take
@@ -510,3 +512,18 @@ def attention_qkv(qkv, scale=None):
     if cuda:
         return flash_attention_qkv(qkv, scale)
     return _attention_qkv_cpu(qkv, scale)
+
+
+def attention_merged(q, k, v, scale=None):
+    """Per-tensor attention, ``[B, H, N, Dh]`` in → heads-merged ``[B, N,
+    H * Dh]`` (the JAX package's ``attention_merged``): packs q, k and v into
+    the standard stream's ``[B, N, 3, H, Dh]`` (one copy) for
+    :func:`attention_qkv` (K5 on CUDA)."""
+    return attention_qkv(torch.stack((q, k, v), 1).permute(0, 3, 1, 2, 4).contiguous(), scale)
+
+
+def multi_head_attention(q, k, v, scale=None):
+    """Per-tensor attention, ``[B, H, N, Dh]`` in and out (the JAX package's
+    ``multi_head_attention``), through :func:`attention_merged`."""
+    B, H, N, Dh = q.shape
+    return attention_merged(q, k, v, scale).reshape(B, N, H, Dh).transpose(1, 2)

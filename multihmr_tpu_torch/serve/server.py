@@ -24,6 +24,11 @@ an fp32 wire for an artifact; this one keeps its one uint8 wire). The JAX
 server runs a single chip's batch image by image (``batch_mode="auto"`` →
 ``lax.map``); this one runs the fused batch, and a request's result equals
 the same image alone in slot 0 of the same batch.
+
+Data-parallel serving (``mesh=``, a list of devices, ``cli/serve.py --dp``):
+the form of parallel/infer.py, one replica of the weights per device, each
+batch cut into equal chunks in order, each chunk's forward and readback on
+its own device, the persons put back together in order on the host.
 """
 
 from __future__ import annotations
@@ -54,37 +59,61 @@ def build_batched_infer(model, max_batch: int = 8,
     ``io.export.as_model_forward(load_exported(...))``, run on its
     ``device`` in place of ``model.forward`` (its detection parameters are
     the artifact's); ``model`` then only reads back the persons, and its net
-    may hold no weights (``factory.build_host_model``). ``mesh``
-    (data-parallel serving, ROADMAP M11) is not ported."""
+    may hold no weights (``factory.build_host_model``). ``mesh``: a list of
+    devices to serve data-parallel over (``max_batch`` a multiple of its
+    length; not with ``forward_fn``)."""
     from multihmr_tpu_torch.io.preprocessing import preprocess_array
     from multihmr_tpu_torch.ops.image import IMG_NORM_MEAN, IMG_NORM_STD
+    from multihmr_tpu_torch.parallel.infer import DataParallel, persons_in_order
     from multihmr_tpu_torch.serve.batcher import DynamicBatcher
 
+    norm = {}  # device → (mean, std)
+
+    def upload(a: np.ndarray, device) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+    def prepare(x, K, device):  # the u8 wire, normalized on the device
+        if device not in norm:
+            norm[device] = tuple(torch.from_numpy(a).to(device)
+                                 for a in (IMG_NORM_MEAN, IMG_NORM_STD))
+        mean, std = norm[device]
+        return (upload(x, device).float() / 255.0 - mean) / std, upload(K, device)
+
     if mesh is not None:
-        raise NotImplementedError("mesh= (data-parallel serving) is not ported yet: "
-                                  "ROADMAP M11")
-    if forward_fn is None:
-        device = model.body_model.v_template.device
-        forward_fn = functools.partial(model.forward, det_thresh=det_thresh,
-                                       nms_kernel_size=nms_kernel_size)
+        if forward_fn is not None:
+            raise ValueError("mesh= (data-parallel serving) and forward_fn= (an exported "
+                             "artifact) exclude each other")
+        try:
+            devices = [torch.device(d) for d in mesh]
+        except (TypeError, RuntimeError) as e:
+            raise ValueError(f"mesh= takes a list of devices, got {mesh!r}") from e
+        dp = DataParallel(model, devices)
+        if max_batch % len(dp):
+            raise ValueError(f"max_batch {max_batch} must divide over the {len(dp)} devices")
+
+        def batch_fn(x, K):
+            with torch.inference_mode():
+                return dp.start_persons(x, K, fields, prepare, det_thresh=det_thresh,
+                                        nms_kernel_size=nms_kernel_size)
+
+        def extract_fn(pending, n_valid):
+            return persons_in_order(pending)[:n_valid]
     else:
-        device = torch.device(forward_fn.device)
-    cuda = device.type == "cuda"
-    mean = torch.from_numpy(IMG_NORM_MEAN).to(device)
-    std = torch.from_numpy(IMG_NORM_STD).to(device)
+        if forward_fn is None:
+            device = model.body_model.v_template.device
+            forward_fn = functools.partial(model.forward, det_thresh=det_thresh,
+                                           nms_kernel_size=nms_kernel_size)
+        else:
+            device = torch.device(forward_fn.device)
 
-    def upload(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        return t.pin_memory().to(device, non_blocking=True) if cuda else t
+        def batch_fn(x, K):
+            # the worker thread's own grad mode: it does not inherit the caller's
+            with torch.inference_mode():
+                return model.start_persons(forward_fn(*prepare(x, K, device)), fields)
 
-    def batch_fn(x, K):
-        # the worker thread's own grad mode: it does not inherit the caller's
-        with torch.inference_mode():
-            x = (upload(x).float() / 255.0 - mean) / std  # the u8 wire, normalized here
-            return model.start_persons(forward_fn(x, upload(K)), fields)
-
-    def extract_fn(pending, n_valid):
-        return pending.persons()[:n_valid]  # waits on the batch's event only
+        def extract_fn(pending, n_valid):
+            return pending.persons()[:n_valid]  # waits on the batch's event only
 
     S = model.cfg.img_size
 

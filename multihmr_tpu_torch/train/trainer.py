@@ -8,8 +8,16 @@
   * :class:`Trainer` runs epochs with a windowed loss fetch, a NaN-streak
     abort, data/batch meters, per-epoch checkpoints and a bitwise resume.
 
-The JAX package's mesh/FSDP arguments (multi-device training) are not here:
-one device only, until the multi-device slice.
+Multi-device training (``mesh=``, JAX ``trainer.py:197-199``): one rank per
+device on a (data, model) ``DeviceMesh`` (parallel/sharding.py), the model
+built on the same mesh. Each rank takes its ``data`` slice of every batch;
+the loss divides by the whole batch's counts (train/loss.py), so the
+gradients are summed over ``data`` (FSDP2's reduce-scatter for the leaves
+``fsdp=True`` shards, one all-reduce for the rest) and, in ring mode, the
+block parameters' over ``model`` too. ``clip_grad`` takes the norm of the
+whole model. Rank 0 logs, writes the gathered full state in the
+single-device formats (so a mesh run resumes on one device and the other
+way round) and evaluates on a single-device twin.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multihmr_tpu_torch.bodymodel.constants import get_smplx_joint_names
 from multihmr_tpu_torch.bodymodel.core import BodyModel, lbs_forward
@@ -31,6 +40,7 @@ from multihmr_tpu_torch.ops.camera import (
 )
 from multihmr_tpu_torch.ops.detection import Detections
 from multihmr_tpu_torch.ops.rotations import rotvec_to_rotmat
+from multihmr_tpu_torch.parallel import sharding
 from multihmr_tpu_torch.train.loss import LossWeights, multihmr_loss
 from multihmr_tpu_torch.train.metrics import AverageMeter
 
@@ -123,11 +133,17 @@ def to_device(batch: dict, device) -> dict:
 def make_train_step(model, optimizer: torch.optim.Optimizer,
                     weights: LossWeights = LossWeights(),
                     gt_body_model: Optional[BodyModel] = None,
-                    person_center: str = "head", clip_grad: float = 0.0):
+                    person_center: str = "head", clip_grad: float = 0.0,
+                    fsdp_names=frozenset()):
     """``train_step(batch, epoch) -> terms``: forward, loss, backward and one
     optimizer step, updating ``model.net`` and ``optimizer`` in place.
     ``batch`` holds :data:`BATCH_KEYS` as tensors on the model's device;
     ``terms`` are the loss terms as detached device scalars.
+
+    Under ``model.mesh``, ``batch`` is this rank's slice, the gradients are
+    completed over the mesh (``sharding.sync_gradients``; ``fsdp_names``
+    the parameters FSDP reduces itself) and ``terms`` are the whole batch's,
+    equal on every rank.
 
     ``clip_grad > 0`` clips the global gradient norm with
     ``torch.nn.utils.clip_grad_norm_`` where the JAX CLI chains
@@ -141,6 +157,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     gt_bm = gt_body_model if gt_body_model is not None else model.body_model
     cfg = model.cfg
     params = [p for p in model.net.parameters() if p.requires_grad]
+    mesh, tp_mode = model.mesh, model.tp_mode
+    data_group = sharding.axis_group(mesh, "data")
 
     def train_step(batch: dict, epoch: int) -> dict:
         model.net.train()
@@ -152,24 +170,47 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
                                   gt_det=gt["det"]))
         pred["scores"] = pred["scores"][..., None]  # heatmap rank of the loss
         gt = dict(gt, scores=gt["scores"][..., None])
-        total, terms = multihmr_loss(pred, gt, weights, epoch=epoch, img_size=cfg.img_size)
+        total, terms = multihmr_loss(pred, gt, weights, epoch=epoch, img_size=cfg.img_size,
+                                     group=data_group)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if mesh is not None:
+            sharding.sync_gradients(model.net, mesh, tp_mode, fsdp_names)
         if clip_grad > 0:
-            torch.nn.utils.clip_grad_norm_(params, clip_grad)
+            if mesh is None:
+                torch.nn.utils.clip_grad_norm_(params, clip_grad)
+            else:
+                sharding.clip_grad_norm(model.net, clip_grad, mesh, tp_mode)
         optimizer.step()
-        return {k: v.detach() for k, v in terms.items()}
+        terms = {k: v.detach() for k, v in terms.items()}
+        if data_group is not None:  # each rank's terms add up to the batch's
+            from multihmr_tpu_torch.parallel.comm import all_reduce
+
+            names = list(terms)
+            summed = all_reduce(torch.stack([terms[k] for k in names]), data_group).unbind()
+            terms = dict(zip(names, summed))
+            terms["finite"] = (terms["finite"] == sharding.axis_size(mesh, "data")).float()
+        return terms
 
     return train_step
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Epoch loop: train → checkpoint → eval, on one device.
+    """Epoch loop: train → checkpoint → eval.
 
     ``model`` is a :class:`~multihmr_tpu_torch.models.multihmr.MultiHMR`
     whose ``net`` the optimizer updates. ``data_iter_fn()`` yields batches
     of :data:`BATCH_KEYS` (numpy or tensors; moved to the net's device).
+
+    ``mesh``: multi-device training (see the module docstring); every rank
+    runs the same loop on the same batches, of which it takes its slice.
+    ``fsdp`` shards the parameters of ``fsdp_min_size`` elements or more
+    over ``data`` (``sharding.apply_fsdp``), and with them the Adam
+    moments: the optimizer is then rebuilt, of the same class and defaults,
+    over the sharded parameters (FSDP2 replaces the parameter objects) in
+    two groups, the sharded and the rest (``sharding.param_groups``), so it
+    must not have stepped yet.
     """
 
     model: Any
@@ -195,11 +236,54 @@ class Trainer:
     # Mid-epoch progress print period in steps, rounded up to the window; 0
     # prints the epoch summary only
     log_every_steps: int = 0
+    # a (data, model) DeviceMesh the model was built on; None: one device
+    mesh: Optional[Any] = None
+    fsdp: bool = False
+    fsdp_min_size: int = 1 << 16  # FSDP leaves this many elements and up
 
     def __post_init__(self):
+        self.fsdp_names = frozenset()
+        self._twin = None
+        if self.mesh is not None:
+            if self.model.mesh is not self.mesh:
+                raise ValueError("build the model on the trainer's mesh: "
+                                 "MultiHMR(..., mesh=mesh)")
+            if self.fsdp and sharding.axis_size(self.mesh, "data") > 1:
+                if self.optimizer.state:
+                    raise ValueError("fsdp: give the Trainer an optimizer that has not stepped")
+                self.fsdp_names = frozenset(sharding.apply_fsdp(
+                    self.model.net, self.mesh, self.fsdp_min_size))
+                self.optimizer = type(self.optimizer)(sharding.param_groups(self.model.net),
+                                                      **self.optimizer.defaults)
+            if dist.get_rank() != 0:
+                self.log_fn = lambda *_: None
         self.train_step = make_train_step(
             self.model, self.optimizer, self.weights, gt_body_model=self.gt_body_model,
-            person_center=self.model.cfg.person_center, clip_grad=self.clip_grad)
+            person_center=self.model.cfg.person_center, clip_grad=self.clip_grad,
+            fsdp_names=self.fsdp_names)
+
+    def full_state(self) -> dict:
+        """The net's full weights (single-device names and shapes). Under a
+        mesh a collective: every rank calls it."""
+        if self.mesh is None:
+            return self.model.net.state_dict()
+        return sharding.gather_state_dict(self.model.net, self.mesh, self.model.tp_mode)
+
+    def _optimizer_state(self) -> dict:
+        if self.mesh is None:
+            return self.optimizer.state_dict()
+        return sharding.gather_optimizer_state(self.optimizer, self.model.net, self.mesh,
+                                               self.model.tp_mode)
+
+    def _eval_model(self, full: dict):
+        """The model itself on one device; under a mesh a single-device twin
+        on this rank's device holding the full weights."""
+        if self.mesh is None:
+            return self.model
+        if self._twin is None:
+            self._twin = self.model.unsharded()
+        self._twin.net.load_state_dict(full)
+        return self._twin
 
     def restore(self) -> Optional[int]:
         """Load the newest full train state saved by :meth:`fit` into the
@@ -210,8 +294,14 @@ class Trainer:
         state = ckpt.latest_train_state(self.checkpoint_dir)
         if state is None:
             return None
-        self.model.net.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self.mesh is None:
+            self.model.net.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:  # every rank reads the full state and keeps its piece
+            sharding.load_full_state_dict(self.model.net, state["model"], self.mesh,
+                                          self.model.tp_mode)
+            sharding.load_full_optimizer_state(self.optimizer, self.model.net,
+                                               state["optimizer"], self.mesh, self.model.tp_mode)
         return state["epoch"] + 1
 
     def fit(self, data_iter_fn: Callable[[], Any], epochs: int = 1,
@@ -257,6 +347,8 @@ class Trainer:
 
             for batch in data_iter_fn():
                 t_data = time.perf_counter() - t_end
+                if self.mesh is not None:  # this rank's slice of the batch
+                    batch = sharding.shard_batch({k: batch[k] for k in BATCH_KEYS}, self.mesh)
                 terms = self.train_step(to_device(batch, device), epoch)
                 pending.append((terms["total"], terms["finite"]))
                 data_win += t_data
@@ -274,12 +366,17 @@ class Trainer:
                 f"(data {meters['data'].avg * 1e3:.1f} ms, "
                 f"batch {meters['batch'].avg * 1e3:.1f} ms, "
                 f"ratio_data {meters['ratio_data'].avg:.3f})")
+            lead = self.mesh is None or dist.get_rank() == 0
+            full = self.full_state() if self.checkpoint_dir is not None or eval_fn else None
             if self.checkpoint_dir is not None:
-                sd = self.model.net.state_dict()
-                ckpt.save_checkpoint(self.checkpoint_dir, sd, epoch, self.model.cfg)
-                ckpt.prune_checkpoints(self.checkpoint_dir, self.nb_max_ckpt)
-                if self.save_train_state:
-                    ckpt.save_train_state(self.checkpoint_dir, epoch, sd,
-                                          self.optimizer.state_dict(), self.nb_max_ckpt)
-            if eval_fn is not None:
-                eval_fn(self.model, epoch)
+                opt_state = self._optimizer_state() if self.save_train_state else None
+                if lead:
+                    ckpt.save_checkpoint(self.checkpoint_dir, full, epoch, self.model.cfg)
+                    ckpt.prune_checkpoints(self.checkpoint_dir, self.nb_max_ckpt)
+                    if self.save_train_state:
+                        ckpt.save_train_state(self.checkpoint_dir, epoch, full, opt_state,
+                                              self.nb_max_ckpt)
+            if eval_fn is not None and lead:
+                eval_fn(self._eval_model(full), epoch)
+            if self.mesh is not None:
+                dist.barrier()

@@ -5,8 +5,8 @@ with the epoch-end BEDLAM + EHF evaluation, ``--eval_only 1 --amp 0``,
 ``--resume`` and ``--pretrained`` (this port's checkpoints and the JAX
 package's ``.msgpack`` here; reference
 ``multiHMR_*.pt`` files in tests/test_torch_checkpoint.py, whose faults must
-raise the JAX package's errors), and the flags of features not ported yet,
-which must raise, and ``--visu_to_save``'s eval triptychs. ``--valset
+raise the JAX package's errors), the mesh flags' checks, which must raise,
+and ``--visu_to_save``'s eval triptychs. ``--valset
 3dpw`` is in tests/test_torch_threedpw.py."""
 
 import json
@@ -99,13 +99,41 @@ def test_train_cli_visu_to_save(trees, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--n_devices", "2"], "M11"),
-    (["--model_parallel", "2"], "M11"),
-    (["--fsdp", "1"], "M11"),
+    (["--n_devices", "2"], "torchrun --nproc_per_node 2"),
+    (["--model_parallel", "2"], "not divisible by --model_parallel"),
+    (["--n_devices", "2", "--batch_size", "3"], "must divide over the data axis"),
 ])
 def test_unported_flags_raise(trees, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """What the JAX CLI asserts of the mesh flags, and a multi-device run
+    without its launcher, raise before any work."""
+    with pytest.raises(ValueError, match=match):
         main(TINY[:-4] + ["--device", "cpu"] + flags)
+
+
+def test_train_cli_mesh_resumes_on_one_device(trees, capsys):
+    """``--n_devices 2 --model_parallel 2 --fsdp 1`` on two spawned gloo
+    ranks (as torchrun would start them): the JAX CLI's mesh line, two TP
+    steps, rank 0's checkpoint and evaluation; then the same run resumed on
+    one device from that checkpoint."""
+    from multihmr_tpu_torch.parallel.launch import run_ranks
+    from tests import torch_parallel_ranks
+
+    mesh_flags = ["--n_devices", "2", "--model_parallel", "2", "--fsdp", "1"]
+    run = TRAIN + ["--valset", "ehf", "--val_n", "1", "--name", "mesh"]
+    run_ranks(torch_parallel_ranks.cli_world, 2,
+              (os.getcwd(), TINY[:-4] + ["--device", "cpu"] + mesh_flags + run + ["--n_epoch", "1"]))
+    names = os.listdir(os.path.join("ckpts", "mesh"))
+    assert "ckpt_000000.pt" in names and "state" in names
+    m = _metrics("mesh")
+    assert m["ehf-test-1/n_images"] == 1 and all(np.isfinite(v) for v in m.values())
+    with open(os.path.join("ckpts", "mesh", "ckpt_000000.json")) as f:
+        assert json.load(f)["epoch"] == 0
+
+    main(TINY + run + ["--n_epoch", "2", "--resume", "1"])
+    out = capsys.readouterr().out
+    assert "--resume: restored epoch 0, continuing at epoch 1" in out
+    assert np.isfinite(float(out.split("epoch 1: mean loss")[1].split()[0]))
+    assert "ckpt_000001.pt" in os.listdir(os.path.join("ckpts", "mesh"))
 
 
 def _jax_checkpoint(ckpt_dir):

@@ -1,8 +1,9 @@
 """The port's serving path (``multihmr_tpu_torch/serve``, ``cli/serve.py``)
 on the CPU: the cases of tests/test_serve.py on the port's batcher and
-server (all but data-parallel serving, M11, and the profiler's op table,
-M12), and the port's server against the JAX server on the same tiny
-weights and PNGs.
+server (all but the profiler's op table, M12), the port's server against
+the JAX server on the same tiny weights and PNGs, and data-parallel serving
+(``mesh=``, a list of devices: ``[cpu, cpu]`` here) against the JAX
+server on its 8-device data mesh.
 
 The tiny model is tests/test_torch_model.py's: ``TinyConfig`` (ViT 32 wide,
 2 deep, 56 x 56, K = 4 slots) in fp32 with the "tempered" weights of
@@ -299,6 +300,68 @@ def test_server_matches_jax_server(pair):
                 assert err <= t, (k, err)
 
 
+def test_dp_mesh_serving_matches_single(pair):
+    """Data-parallel serving over [cpu, cpu] (each batch of 8 cut into two
+    chunks of 4, one replica each): the persons of one request equal the
+    JAX data-parallel server's on its 8-device mesh (this file's forward
+    parity tolerance) and the port's forward of that image alone."""
+    from multihmr_tpu.parallel import make_mesh as jmake_mesh
+    from multihmr_tpu.serve.server import build_batched_infer as jbuild
+
+    from multihmr_tpu_torch.ops.image import IMG_NORM_MEAN, IMG_NORM_STD
+
+    cfg, params, jm, tm = pair
+    u8 = np.random.default_rng(3).integers(0, 256, size=(S, S, 3), dtype=np.uint8)
+    # normalised as the port's server does it on the device
+    x = ((torch.from_numpy(u8).float() / 255.0 - torch.from_numpy(IMG_NORM_MEAN))
+         / torch.from_numpy(IMG_NORM_STD)).numpy()
+    got = {}
+    for name, (batcher, _), img in (
+            ("jax", jbuild(jm, params, max_batch=8, det_thresh=0.1, max_delay_ms=1.0,
+                           mesh=jmake_mesh(8, model_parallel=1), wire="f32"), x),
+            ("torch", build_batched_infer(tm, max_batch=8, det_thresh=0.1, max_delay_ms=1.0,
+                                          mesh=["cpu", "cpu"]), u8)):
+        try:
+            got[name] = batcher.submit(img, K_TINY)
+        finally:
+            batcher.close()
+    with torch.inference_mode():
+        alone = tm.extract_persons(tm.forward(torch.from_numpy(x[None]),
+                                              torch.from_numpy(K_TINY[None]), det_thresh=0.1))[0]
+    assert len(got["torch"]) == len(got["jax"]) == len(alone) > 0
+    tol = TOLS["tempered"]["v3d"]
+    for g, w, a in zip(got["torch"], got["jax"], alone):
+        v = np.asarray(w["v3d"], np.float64)
+        assert np.abs(g["v3d"] - v).max() / max(np.abs(v).max(), 1.0) <= tol
+        np.testing.assert_allclose(g["v3d"], a["v3d"], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("with_mesh,expected", [(True, [4, 4]), (False, [8])])
+def test_server_batch_mode_selection(model, with_mesh, expected):
+    """Each batch runs as fused forwards: one of max_batch images on one
+    device, one of max_batch / n images per device of a mesh (the JAX
+    server asks for "fused" under a mesh and "auto" without; the port has no
+    lax.map, so "auto" is fused too)."""
+    seen = []
+    orig_forward = model.forward
+
+    def spy_forward(x, K, **kw):
+        seen.append(x.shape[0])
+        return orig_forward(x, K, **kw)
+
+    model.forward = spy_forward
+    try:
+        batcher, _ = build_batched_infer(model, max_batch=8, det_thresh=0.1, max_delay_ms=1.0,
+                                         mesh=["cpu", "cpu"] if with_mesh else None)
+        try:
+            batcher.submit(np.zeros((S, S, 3), np.uint8), K_TINY)
+        finally:
+            batcher.close()
+    finally:
+        del model.forward
+    assert seen == expected, seen
+
+
 def test_u8_wire_matches_host_normalized(model):
     """The uint8 wire (raw pixels, normalized on the device) gives the same
     input as host normalization, hence the same persons."""
@@ -349,9 +412,14 @@ def test_wire_dtype_mismatch_rejected(model):
             batcher.close()
 
 
-@pytest.mark.parametrize("kw,match", [({"mesh": object()}, "M11")])
+@pytest.mark.parametrize("kw,match", [
+    ({"mesh": object()}, "list of devices"),
+    ({"mesh": ["cpu", "cpu"], "max_batch": 3}, "must divide over the 2 devices"),
+    ({"mesh": ["cpu"], "forward_fn": lambda x, K: None}, "exclude each other"),
+])
 def test_unported_server_options_raise(model, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A data-parallel server's options the JAX server asserts raise."""
+    with pytest.raises(ValueError, match=match):
         build_batched_infer(model, **kw)
 
 
@@ -554,14 +622,14 @@ def test_serve_cli_on_the_cpu(tiny_factory):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--dp"], NotImplementedError, "M11"),
-    (["--artifact", "exported/672B", "--dp"], NotImplementedError, "M11"),
+    (["--dp"], RuntimeError, "no CUDA card"),
+    (["--artifact", "exported/672B", "--dp"], ValueError, "mutually exclusive"),
     (["--model_name", "multiHMR_672_L_anny", "--device", "cpu"], ValueError, "Anny"),
     ([], RuntimeError, "no CUDA card"),
 ])
 def test_serve_cli_refusals(flags, error, match, monkeypatch):
-    """Unported flags (``--dp``, also beside ``--artifact``) and an Anny name
-    raise at start; so does --device cuda without a card (no quiet CPU
+    """``--dp`` beside ``--artifact`` and an Anny name raise at start; so
+    does --device cuda without a card, with ``--dp`` too (no quiet CPU
     serving)."""
     from multihmr_tpu_torch.cli import serve
 
