@@ -202,9 +202,29 @@ card. Phases, one line each:
      two steps on NCCL. Times here come from two ranks sharing one card
      through staged collectives and are no scaling figure.
 
+ 22. the measurement tools (``multihmr_tpu_torch/tools``, timing through
+     ``utils/profiling.py``), in process: (a) ``profile_model`` over the
+     six SMPL-X configurations at batch 1, bf16, heads (finite outputs,
+     ms/img, 12 K1 + 24 K2 per forward for S and B, 24 + 48 for L, peak
+     memory), ``multiHMR_1288_L_bedlam`` also with ``--stages`` and ``--ops
+     10`` (the ViT alone, device busy per forward, the top kernels) and on
+     ring (24 K5, no K1 or K2); (b) ``sweep_capacity`` at 672_B and 896_L
+     over 16, 32 and 64 slots; (c) ``bf16_sensitivity`` at 672_S, 672_L,
+     896_L and 1288_L_bedlam (1 seed, 1 image, 3 persons) beside the JAX
+     package's figures; (d) ``bench_eval`` at 672_S over 100 fixture
+     images, the u8 wire and the same pixels normalized on the host, each
+     pipelined and serial (images/s, the phases' share of the wall, equal
+     F1); (e) ``parity_harness`` at 672_S fp32 (LayerScale 0.5) on three
+     seeded JPEGs and a reference-layout checkpoint, the card against
+     ``stage_*`` dumps of the CPU plain path, exit 0; (f) 3 training steps
+     of ``multiHMR_1288_L_bedlam`` at batch 1 through ``tools/train_smoke``
+     (finite losses, 24 K1 + 24 K3 + 48 K2 per step, ms per step, peak
+     memory). Cut to fit the script's time: ``latency_stats`` chains of 4
+     and 8 forwards, 3 repeats.
+
 Then a JSON line of the kernels (each with ``artifact_launches``, its
 launches per 672_B batch through phase 19's artifacts; ``launches`` adds
-phase 21's, all ranks), the nvidia-smi
+phase 21's, all ranks, and phase 22's), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
 Exits non-zero at once without a CUDA card.
@@ -281,26 +301,11 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int, reps: int = 5, warmup: int = 3, ahead_ms: float = 0.0) -> float:
-    """Milliseconds per ``fn()``: CUDA events around ``iters`` back-to-back
-    calls (so host launch overhead hides behind queued device work), the
-    median of ``reps`` such runs. ``ahead_ms``: the device first spins that
-    long, so that the host queues the calls ahead of it; for kernels shorter
-    than their launch's host cost, whose back-to-back calls would otherwise
-    time the host."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if ahead_ms:
-            torch.cuda._sleep(int(ahead_ms * 2e6))  # ~2e6 cycles per ms at up to 1.98 GHz
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return float(np.median(times))
+    """``utils/profiling.py::cuda_ms``: ms per ``fn()`` by CUDA events around
+    ``iters`` back-to-back calls, the device first spinning ``ahead_ms``."""
+    from multihmr_tpu_torch.utils.profiling import cuda_ms as timed
+
+    return timed(fn, iters, reps, warmup, ahead_ms)
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -2039,7 +2044,7 @@ def time_anny(models, demo, x, K, card):
 
     from multihmr_tpu_torch.bodymodel import core
     from multihmr_tpu_torch.io.preprocessing import preprocess_array
-    from multihmr_tpu_torch.tools.train_smoke import busy_us
+    from multihmr_tpu_torch.utils.profiling import busy_ms
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     figures = {}
@@ -2054,7 +2059,7 @@ def time_anny(models, demo, x, K, card):
                 for _ in range(n):
                     model.forward(x, K)
                 torch.cuda.synchronize()
-            busy = busy_us(prof.events()) / 1e3 / n
+            busy = busy_ms(prof.events()) / n
             figures[tp_mode] = (fwd, busy, body)
             img = synthetic_image(0, 480, 640)
             pre = wall_ms(lambda: preprocess_array(img, model.cfg.img_size))
@@ -2545,7 +2550,7 @@ def forward_alone(fn):
     """(host ms to enqueue ``fn()``, wall ms to its end on the card, device
     busy ms) of one forward, no other threads; medians after warm-up,
     busy over a profile of 3 calls."""
-    from multihmr_tpu_torch.tools.train_smoke import busy_us
+    from multihmr_tpu_torch.utils.profiling import busy_ms
 
     with torch.inference_mode():
         enqueue = []
@@ -2559,7 +2564,7 @@ def forward_alone(fn):
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
-    return float(np.median(enqueue[2:])), fwd, busy_us(prof.events()) / 1e3 / 3
+    return float(np.median(enqueue[2:])), fwd, busy_ms(prof.events()) / 3
 
 
 def serve_saturation(model, payloads, card):
@@ -2602,14 +2607,14 @@ def saturate(s, work, profile, phase, label, card):
     """``work`` from 16 clients against the server of ``s``: images/s,
     client latency, batching, the worker's phases and (``profile``) the
     card's busy share of the window."""
-    from multihmr_tpu_torch.tools.train_smoke import busy_us
+    from multihmr_tpu_torch.utils.profiling import busy_ms
 
     busy = None
     if profile:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             res, wall = run_clients(s.port, work, 16)
             torch.cuda.synchronize()
-        busy = busy_us(prof.events()) / 1e3 / (wall * 1e3)
+        busy = busy_ms(prof.events()) / (wall * 1e3)
     else:
         res, wall = run_clients(s.port, work, 16)
     st = s.batcher.stats
@@ -4195,6 +4200,248 @@ def run_parallel(build_model, cast_backbone_bf16, cuda_lib, attention, norm, car
     return launches
 
 
+# ---- phase 22: the measurement tools (M12) on the card
+
+SMPLX_SIX = ("multiHMR_672_S", "multiHMR_672_B", "multiHMR_672_L", "multiHMR_896_L",
+             "multiHMR_1288_L_bedlam", "multiHMR_1288_L_agora")
+# the JAX package's bf16-backbone sensitivity (BASELINE.md "bf16-backbone
+# sensitivity", TPU v5e, random init, 12 samples each): (raw p50, raw p99,
+# pelvis-centred p50, pelvis-centred p99) in mm
+JAX_BF16_MM = {"multiHMR_672_S": (29.3, 80.1, 27.1, 102.2),
+               "multiHMR_672_L": (24.0, 44.6, 21.5, 74.3),
+               "multiHMR_896_L": (28.8, 95.7, 18.1, 123.0),
+               "multiHMR_1288_L_bedlam": (20.2, 43.1, 18.0, 30.5)}
+# phase 22's cuts of the tools' defaults, to fit the script's time: chains of
+# 4 and 8 forwards and 3 repeats in latency_stats (8, 16 and 5); bf16
+# sensitivity at 1 seed and 1 image (2 and 2)
+TOOL_ITERS, TOOL_REPEATS = 4, 3
+
+
+def _depth(name):
+    from multihmr_tpu_torch.config import named_config
+
+    return named_config(name).vit.depth
+
+
+def tools_profile(cuda_lib, attention, norm, card):
+    """(a) profile_model over the six SMPL-X configurations at batch 1, bf16,
+    heads; 1288_L_bedlam also with --stages and --ops 10, and on ring."""
+    from multihmr_tpu_torch.tools import profile_model
+
+    out, ok = {}, True
+    runs = [(n, "heads", n == "multiHMR_1288_L_bedlam") for n in SMPLX_SIX]
+    runs.append(("multiHMR_1288_L_bedlam", "ring", False))
+    for name, tp_mode, deep in runs:
+        t0 = time.perf_counter()
+        r = profile_model.run(name, 1, TOOL_ITERS, stages=deep, ops=10 if deep else 0,
+                              tp_mode=tp_mode, repeats=TOOL_REPEATS, log=lambda m: log(22, m))
+        d = _depth(name)
+        got = tuple(r["launches"].get(k, 0) for k in (attention.KERNEL, norm.KERNEL,
+                                                      attention.KERNEL_STD))
+        want = (d, 2 * d, 0) if tp_mode == "heads" else (0, 0, d)
+        good = r["finite"] and got == want
+        ok = ok and good
+        out[(name, tp_mode)] = r
+        log(22, f"(a) {name} ({tp_mode}) bf16 batch 1: {r['ms']:.2f} ms/img, outputs "
+                f"{'finite' if r['finite'] else 'NOT FINITE'}, launches per forward K1/K2/K5 "
+                f"{got} (want {want}), peak memory {r['peak_gib']:.2f} GiB"
+                + (f"; vit {r['vit_ms']:.2f} ms, device busy {r['busy_ms']:.2f} ms per forward"
+                   if deep else "") + f"; {time.perf_counter() - t0:.1f} s "
+                f"{'ok' if good else 'FAIL'} [{card}]")
+        del r
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("(a) a configuration's forward is not finite or missed its kernels")
+    return out
+
+
+def tools_capacity(card):
+    """(b) sweep_capacity at 672_B and 896_L over 16, 32 and 64 slots."""
+    from multihmr_tpu_torch.tools import sweep_capacity
+
+    out = {}
+    for name in ("multiHMR_672_B", "multiHMR_896_L"):
+        out[name] = [sweep_capacity.run_point(name, cap, iters=TOOL_ITERS, repeats=TOOL_REPEATS)
+                     for cap in (16, 32, 64)]
+        torch.cuda.empty_cache()
+        log(22, f"(b) {name} capacity sweep: " + ", ".join(
+            f"K={p['capacity']} {p['ms_per_img']:.2f} ms/img (first call {p['first_call_s']} s)"
+            for p in out[name]) + f" [{card}]")
+    return out
+
+
+def tools_bf16(card):
+    """(c) bf16_sensitivity at 1 seed, 1 image, 3 persons, beside the JAX
+    package's figures."""
+    from multihmr_tpu_torch.tools import bf16_sensitivity
+
+    out = {}
+    for name, jax_mm in JAX_BF16_MM.items():
+        t0 = time.perf_counter()
+        r = bf16_sensitivity.run_config(name, 1, 1, 3)
+        torch.cuda.empty_cache()
+        raw, cen = r["v3d_raw_mm"], r["v3d_pelvis_centered_mm"]
+        if r["samples"] != 3 or not all(np.isfinite(v) for v in (*raw.values(), *cen.values())):
+            raise AssertionError(f"(c) {name}: {r}")
+        out[name] = r
+        log(22, f"(c) {name} bf16 against fp32 backbone, {r['samples']} persons: raw v3d "
+                f"p50/p99/max {raw['p50']}/{raw['p99']}/{raw['max']} mm, pelvis-centred "
+                f"{cen['p50']}/{cen['p99']}/{cen['max']} mm; the JAX package's (TPU v5e, 12 "
+                f"samples, BASELINE.md): raw p50/p99 {jax_mm[0]}/{jax_mm[1]}, centred "
+                f"{jax_mm[2]}/{jax_mm[3]} mm; {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+def tools_eval(card):
+    """(d) bench_eval at 672_S over 100 fixture images: the u8 wire, then the
+    same pixels normalized on the host (the f32 wire), each pipelined and
+    serial; the two wires' F1 equal."""
+    from multihmr_tpu_torch.factory import build_model
+    from multihmr_tpu_torch.io.preprocessing import normalize_nhwc
+    from multihmr_tpu_torch.tools import bench_eval
+    from multihmr_tpu_torch.utils.precision import cast_backbone_bf16
+
+    model = build_model("multiHMR_672_S", device="cuda", seed=0)
+    cast_backbone_bf16(model.net)
+    u8 = bench_eval.build_fixture_dataset(model, 100, wire="u8")
+    thr = bench_eval.calibrate_det_thresh(model, u8[0])
+    f32 = [(normalize_nhwc(x), a) for x, a in u8]
+    out = {}
+    for wire, ds in (("u8", u8), ("f32", f32)):
+        e = bench_eval.run(model, ds, thr)
+        out[wire] = e
+        log(22, f"(d) 672_S eval sweep, {wire} wire, 100 images, det_thresh {thr:.4f}: "
+                f"{e['images_per_s']} images/s pipelined ({e['wall_s']} s), serial "
+                f"{e['serial_wall_s']} s (speedup {e['pipeline_speedup']}), attributed "
+                f"{e['attributed_frac']} of the wall: " + json.dumps(e["phases_s"])
+                + f"; {e['persons_detected']} persons, F1 {e['f1']} [{card}]")
+    if out["u8"]["f1"] != out["f32"]["f1"] or out["u8"]["persons_detected"] == 0:
+        raise AssertionError("(d) the u8 and f32 wires of the same pixels disagree")
+    return out
+
+
+def tools_parity(build_model, named_config, tmp):
+    """(e) parity_harness on the card against dumps of the port's CPU plain
+    path: 672_S fp32, LayerScale 0.5, a reference-layout checkpoint, three
+    seeded JPEGs; det_thresh in the middle of the widest gap of the CPU
+    scores, so that a ReLU flip (S1) cannot change a count."""
+    from multihmr_tpu_torch.io.preprocessing import get_camera_parameters, open_image
+    from multihmr_tpu_torch.tools import parity_harness
+
+    d = os.path.join(tmp, "parity")
+    imgs, dumps = os.path.join(d, "imgs"), os.path.join(d, "dumps")
+    os.makedirs(imgs)
+    os.makedirs(dumps)
+    ckpt = os.path.join(d, "multiHMR_672_S.pt")
+    write_reference_ckpt(ckpt, "multiHMR_672_S", seed=22)
+    for i, (h, w) in enumerate([(480, 640), (720, 540), (600, 600)]):
+        with open(os.path.join(imgs, f"p{i}.jpg"), "wb") as f:
+            f.write(jpeg_bytes(synthetic_image(220 + i, h, w)))
+    cfg = dataclasses.replace(named_config("multiHMR_672_S"), compute_dtype="float32")
+    cpu = build_model("multiHMR_672_S", device="cpu", cfg=cfg, checkpoint=ckpt)
+    K = torch.from_numpy(get_camera_parameters(672))
+    xs = {n: torch.from_numpy(open_image(os.path.join(imgs, n), 672)[0])
+          for n in sorted(os.listdir(imgs))}
+    with torch.inference_mode():
+        scores = [cpu.forward(x, K, det_thresh=0.0)["scores_det"][0].numpy()
+                  for x in xs.values()]
+    s = np.sort(np.concatenate(scores))[::-1]
+    top = min(float(x.max()) for x in scores)
+    gap, thr = max((s[i] - s[i + 1], (s[i] + s[i + 1]) / 2) for i in range(len(s) - 1)
+                   if s[i] <= top)
+    for n, x in xs.items():
+        out, stages = parity_harness.capture_stages(cpu, x, K, float(thr), 3)
+        dump = {f"stage_{k}": v for k, v in stages.items()}
+        for i, p in enumerate(cpu.extract_persons(out)[0]):
+            dump.update({f"v3d_{i}": p["v3d"], f"transl_pelvis_{i}": p["transl_pelvis"],
+                         f"scores_{i}": p["scores"]})
+        np.savez(os.path.join(dumps, n.replace(".jpg", ".npz")), **dump)
+    del cpu
+    report = os.path.join(d, "report.json")
+    rc = parity_harness.main(["--ckpt", ckpt, "--img_folder", imgs, "--reference_dumps", dumps,
+                              "--model_name", "multiHMR_672_S", "--det_thresh", repr(float(thr)),
+                              "--compute_dtype", "float32", "--json_out", report])
+    rep = json.load(open(report))
+    worst = {k: max(e["stages"][k]["max_abs"] for e in rep["images"].values())
+             for k in next(iter(rep["images"].values()))["stages"]}
+    log(22, f"(e) parity_harness 672_S fp32 (LayerScale {LAYERSCALE:g}) card against the CPU "
+            f"plain path, 3 JPEGs, det_thresh {thr:.4f} (gap {gap:.4f}): exit {rc}, persons "
+            f"{[e['persons_ours'] for e in rep['images'].values()]}, max PVE delta "
+            f"{rep['max_pve_mm']:.4f} mm, stage max|d| " + ", ".join(
+                f"{k} {v:.2e}" for k, v in worst.items()))
+    if rc != 0:
+        raise AssertionError(f"(e) parity_harness exited {rc}")
+    return rep
+
+
+def tools_train(cuda_lib, attention, norm, card):
+    """(f) multiHMR_1288_L_bedlam training at batch 1 through train_smoke:
+    3 steps on heads, remat none (remat auto's choice if that does not fit)."""
+    from multihmr_tpu_torch.tools import train_smoke
+
+    policy = "none"
+    before = dict(cuda_lib.LAUNCHES)
+    try:
+        r = train_smoke.run("multiHMR_1288_L_bedlam", batch=1, steps=3, remat_policy=policy,
+                            log=lambda m: log(22, m))
+    except torch.cuda.OutOfMemoryError:
+        from multihmr_tpu_torch.train.memory import choose_remat
+
+        torch.cuda.empty_cache()
+        remat, policy, report = choose_remat(train_smoke.train_config("multiHMR_1288_L_bedlam"), 1)
+        policy = policy if remat else "none"
+        log(22, f"(f) remat none does not fit; remat auto chose {policy}: {report}")
+        before = dict(cuda_lib.LAUNCHES)
+        r = train_smoke.run("multiHMR_1288_L_bedlam", batch=1, steps=3, remat_policy=policy,
+                            log=lambda m: log(22, m))
+    per_step = tuple((cuda_lib.LAUNCHES[k] - before.get(k, 0)) / 3 for k in (
+        attention.KERNEL, attention.KERNEL_BWD, norm.KERNEL))
+    d = _depth("multiHMR_1288_L_bedlam")
+    want = (2 * d if policy == "block" else d, d, 4 * d if policy == "block" else 2 * d)
+    ok = r["finite"] and all(np.isfinite(r["losses"])) and per_step == want
+    log(22, f"(f) 1288_L_bedlam bf16 train step, batch 1, heads, remat {policy}: losses "
+            f"{[round(x, 4) for x in r['losses']]}, {r['median_ms']:.1f} ms per step, peak "
+            f"memory {r['peak_gib']:.2f} GiB, launches per step K1/K3/K2 {per_step} (want "
+            f"{want}) {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("(f) the 1288_L train step is not finite or missed its kernels")
+    return r, policy
+
+
+def run_tools(build_model, named_config, cuda_lib, attention, norm, card, tmp):
+    """Phase 22: the measurement tools on the card, (a)-(f). Every part runs;
+    the phase fails at its end if any did. Returns (figures, the phase's
+    launches per kernel)."""
+    failed, figures = [], {}
+    t0 = time.perf_counter()
+
+    def part(tag, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        except Exception:
+            failed.append(tag)
+            log(22, f"({tag}) FAIL\n" + traceback.format_exc())
+            return None
+        finally:
+            torch.cuda.empty_cache()
+            log(22, f"({tag}) took {time.perf_counter() - t:.1f} s")
+
+    cuda_lib.reset_launches()  # the tools' run starts here
+    figures["a"] = part("a", tools_profile, cuda_lib, attention, norm, card)
+    figures["b"] = part("b", tools_capacity, card)
+    figures["c"] = part("c", tools_bf16, card)
+    figures["d"] = part("d", tools_eval, card)
+    figures["e"] = part("e", tools_parity, build_model, named_config, tmp)
+    figures["f"] = part("f", tools_train, cuda_lib, attention, norm, card)
+    launches = dict(cuda_lib.LAUNCHES)
+    log(22, f"phase 22 took {time.perf_counter() - t0:.1f} s; launches " + json.dumps(launches)
+            + f" [{card}]")
+    if failed:
+        raise AssertionError(f"phase 22 parts failed: {failed}")
+    return figures, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4272,10 +4519,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         par = phase(21, run_parallel, build_model, cast_backbone_bf16, cuda_lib, attention, norm,
                     card, tmp)
+        torch.cuda.empty_cache()
+        tools = phase(22, run_tools, build_model, named_config, cuda_lib, attention, norm, card,
+                      tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref, anny, serving, exported, io_figures, par):
+                          cli_launches, ref, anny, serving, exported, io_figures, par, tools):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
@@ -4283,6 +4533,9 @@ def main() -> int:
     launches.update(two_pass)  # K4a/K4b: the two-pass path of phase 8
     launches[attention.KERNEL_STD] = cli_launches[attention.KERNEL_STD]  # K5: phase 14's ring run
     for name, count in par.items():  # phase 21's multi-rank and data-parallel runs
+        launches[name] = launches.get(name, 0) + count
+    tool_figures, tool_launches = tools
+    for name, count in tool_launches.items():  # phase 22's tools
         launches[name] = launches.get(name, 0) + count
     for label, (ms, peak) in steps.items():
         log("end", f"896_L bf16 train step, batch 2, {label}: {ms:.1f} ms, peak memory "
@@ -4324,6 +4577,15 @@ def main() -> int:
                                         for k, v in lib["rates"].items()))
                + f"; demo p50 {io_figures['b']['demo']:.1f} ms per image against the PIL loop's "
                f"{io_figures['b']['pil']:.1f} [{card}; {host_cpu()}]")
+    prof22 = tool_figures["a"]
+    log("end", "profile_model bf16 batch 1, ms/img (latency_stats slope, "
+               f"{TOOL_ITERS}/{2 * TOOL_ITERS}-forward chains): " + ", ".join(
+                   f"{n} {tp} {r['ms']:.2f}" for (n, tp), r in prof22.items())
+               + f"; 1288_L_bedlam device busy {prof22[(SMPLX_SIX[4], 'heads')]['busy_ms']:.2f} ms "
+               f"per forward [{card}]")
+    step22, policy22 = tool_figures["f"]
+    log("end", f"1288_L_bedlam bf16 train step, batch 1, heads, remat {policy22}: "
+               f"{step22['median_ms']:.1f} ms, peak memory {step22['peak_gib']:.2f} GiB [{card}]")
     # launches per batch through the 672_B artifacts (phase 19 (a)): K1 and
     # K2 on heads, K5 on ring; the backward kernels are not in an export
     artifact_launches = {attention.KERNEL: ex["heads"]["launches"][0],

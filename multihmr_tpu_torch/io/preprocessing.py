@@ -118,6 +118,16 @@ def preprocess_array(img_rgb: np.ndarray, img_size: int, fov: float = 60.0) -> P
                              get_camera_parameters(img_size, fov=fov)[0], original, resized)
 
 
+def open_image(path: str, img_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """An image file → normalized NHWC float32 ``[1, S, S, 3]`` and the
+    unresized RGB array (the JAX ``open_image``; reference demo.py:27-51)."""
+    if _HAS_PIL:
+        img = np.asarray(Image.open(path).convert("RGB"))
+    else:  # pragma: no cover
+        img = np.asarray(__import__("imageio").imread(path))[..., :3]
+    return preprocess_array(img, img_size).x[None], img
+
+
 def rescale_K_to_original(K: np.ndarray, orig_w: int, orig_h: int, img_size: int):
     """K ``[1, 3, 3]`` of the padded square → K for rendering at the
     original resolution (reference demo.py:341-344)."""

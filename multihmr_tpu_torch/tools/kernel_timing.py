@@ -65,6 +65,8 @@ import tempfile
 
 import torch
 
+from multihmr_tpu_torch.utils.profiling import cuda_ms, device_line, profile_steps
+
 # (source, C entry, modes) -> {variant: [(old, new), ...]}; modes: the
 # modes of mhmr_flash_bwd_t a variant is timed at (K3 0, K4a 1, K4b 2; K3 and
 # K4b share their kernel's walk), None for the other entries
@@ -150,32 +152,6 @@ VARIANTS = {
 }
 
 
-def _card():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(fn, iters, reps=5, warmup=3, ahead_ms=0.0):
-    """ms per fn(): CUDA events around `iters` back-to-back calls, median of
-    `reps`; the device first spins `ahead_ms`, so that the host queues the
-    calls ahead of it (kernels shorter than their launch's host cost)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if ahead_ms:
-            torch.cuda._sleep(int(ahead_ms * 2e6))  # ~2e6 cycles per ms at up to 1.98 GHz
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return sorted(times)[reps // 2]
-
-
 def ab(trees) -> int:
     for tree in trees:
         print(f"== turn: {os.path.abspath(tree)}", flush=True)
@@ -254,11 +230,11 @@ def kernel_ms(attention, norm):
         norm.layernorm_cm(xs[turn[0] % 8], s, b)
         turn[0] += 1
 
-    k5 = _cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20, ahead_ms=2)
-    k2 = _cuda_ms(lambda: norm.layernorm_cm(xs[0], s, b), iters=48, ahead_ms=5)
-    k2_rot = _cuda_ms(rotating, iters=48, ahead_ms=5)
+    k5 = cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20, ahead_ms=2)
+    k2 = cuda_ms(lambda: norm.layernorm_cm(xs[0], s, b), iters=48, ahead_ms=5)
+    k2_rot = cuda_ms(rotating, iters=48, ahead_ms=5)
     inputs = _bwd_inputs(attention)
-    bwd = {label: _cuda_ms(_bwd_call(attention, kernel, inputs), iters=10, ahead_ms=2)
+    bwd = {label: cuda_ms(_bwd_call(attention, kernel, inputs), iters=10, ahead_ms=2)
            for label, kernel in (("K3", attention.KERNEL_BWD), ("K4a", attention.KERNEL_BWD_DQ),
                                  ("K4b", attention.KERNEL_BWD_DKV))}
     return [f"K5 [1,16,4097,64] bf16: {k5:.4f} ms",
@@ -272,7 +248,7 @@ def kernel_ms(attention, norm):
 def variants() -> int:
     from multihmr_tpu_torch.ops import attention, cuda_lib, norm
 
-    card = _card()
+    card = device_line("cuda")
     cuda_lib.build()
     inputs = _bwd_inputs(attention)
     q, k, v = inputs[:3]
@@ -304,9 +280,9 @@ def variants() -> int:
                     for use in (False, True, True, False):
                         if use:
                             with cuda_lib.use_variant(name, build, entry):
-                                turns.append(_cuda_ms(fn, iters=iters, ahead_ms=ahead))
+                                turns.append(cuda_ms(fn, iters=iters, ahead_ms=ahead))
                         else:
-                            turns.append(_cuda_ms(fn, iters=iters, ahead_ms=ahead))
+                            turns.append(cuda_ms(fn, iters=iters, ahead_ms=ahead))
                     sound, var = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
                     print(f"{kern} ({source}) {shape} bf16, {name}: {var:.4f} ms against "
                           f"{sound:.4f} sound (turns {'/'.join(f'{t:.4f}' for t in turns)}) "
@@ -316,10 +292,9 @@ def variants() -> int:
 
 def forward(tp_mode: str, top: int) -> int:
     from multihmr_tpu_torch.factory import build_model
-    from multihmr_tpu_torch.tools.train_smoke import profile_steps
     from multihmr_tpu_torch.utils.precision import cast_backbone_bf16
 
-    card = _card()
+    card = device_line("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = build_model("multiHMR_896_L", device="cuda", seed=0, tp_mode=tp_mode)
@@ -328,7 +303,7 @@ def forward(tp_mode: str, top: int) -> int:
                     generator=torch.Generator("cuda").manual_seed(3))
     K = torch.tensor([[[776.0, 0, 448], [0, 776.0, 448], [0, 0, 1]]], device="cuda")
     with torch.inference_mode():
-        ms = _cuda_ms(lambda: model.forward(x, K), iters=5)
+        ms = cuda_ms(lambda: model.forward(x, K), iters=5)
         print(f"896_L bf16 forward ({tp_mode}), batch 1: {ms:.3f} ms (CUDA events) [{card}]")
         profile_steps(lambda batch, epoch: model.forward(x, K), None, top, steps=3)
     return 0
@@ -373,7 +348,7 @@ def s1() -> int:
     from multihmr_tpu_torch.train import trainer
     from multihmr_tpu_torch.train.trainer import make_train_step, to_device
 
-    card = _card()
+    card = device_line("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(train_config("multiHMR_672_S", max_people=4),
@@ -494,7 +469,7 @@ def s1() -> int:
 def rounding(seeds: int) -> int:
     from multihmr_tpu_torch.ops import attention
 
-    card = _card()
+    card = device_line("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     n, kv, scale = 2312, 2305, 64 ** -0.5
     keep = torch.arange(n, device="cuda") < kv

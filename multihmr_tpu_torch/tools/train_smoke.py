@@ -31,6 +31,7 @@ import torch
 from multihmr_tpu_torch.config import named_config
 from multihmr_tpu_torch.factory import build_model
 from multihmr_tpu_torch.train.trainer import make_train_step, to_device
+from multihmr_tpu_torch.utils.profiling import profile_steps
 
 REMAT = ("none", "mlp", "block")
 
@@ -101,42 +102,6 @@ def run(model: str = "multiHMR_896_L", batch: int = 2, steps: int = 5,
         profile_steps(step, b, ops, log)
     return {"losses": losses, "ms": ms, "median_ms": median, "peak_gib": peak,
             "finite": all(float(t["finite"]) == 1.0 for t in terms)}
-
-
-def busy_us(events) -> float:
-    """Union of the device kernels' [start, end) intervals among profiler
-    events, in microseconds."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
-
-
-def profile_steps(step, batch: dict, top: int, log=print, steps: int = 2) -> None:
-    """Device time per kernel and the busy share over ``steps`` train steps."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(batch, 0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    busy_ms = busy_us(prof.events()) / 1e3 / steps
-    log(f"profiled: wall {wall_ms:.1f} ms/step, device busy {busy_ms:.1f} ms/step "
-        f"({100 * busy_ms / wall_ms:.1f} %)")
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    log(f"{'ms/step':>9} {'calls/step':>10}  kernel")
-    for e in rows[:top]:
-        log(f"{e.self_device_time_total / 1e3 / steps:9.3f} {e.count / steps:10.1f}  "
-            f"{e.key[:100]}")
 
 
 def main(argv=None) -> int:

@@ -152,6 +152,7 @@ def evaluate_dataset(
     visu_to_save: int = 0,
     visu_dir: str = "eval_visu",
     faces: Optional[np.ndarray] = None,
+    pipeline: Optional[bool] = None,
 ) -> Dict[str, float]:
     """Run eval over a dataset yielding (image NHWC, annot dict) with the
     model's own weights (a :class:`~multihmr_tpu_torch.models.multihmr.MultiHMR`
@@ -167,14 +168,23 @@ def evaluate_dataset(
     body model's ``faces`` writes ``visu_dir/eval_<i>.png`` for the first
     images: [input | prediction | GT] (reference train.py:441-469).
 
-    With a ``gt_forward`` or eval visualization (per-image host work to
-    hide) the loop enqueues
-    image *i+1*'s forward on the card before image *i*'s result is read
-    back, so the card computes while the host matches and scores, as the JAX
-    package does; without one it is the reference's serial loop.
+    With ``pipeline=True`` the loop enqueues image *i+1*'s forward on the
+    card before image *i*'s result is read back, so the card computes while
+    the host matches and scores; with ``False`` it is the reference's serial
+    loop. ``None`` (the default) pipelines only where there is per-image
+    host work to hide (a ``gt_forward`` or eval visualization), as the JAX
+    package does. Images of dtype ``uint8`` are uploaded as they are and
+    normalized on the device (``/255``, then ``IMG_NORM_MEAN`` and
+    ``IMG_NORM_STD`` in fp32), a quarter of the upload bytes.
     ``results['timings']`` attributes the wall clock: load / dispatch / wait
     / readback / gt / match_metrics / visu sum to about the wall."""
+    from multihmr_tpu_torch.ops.image import IMG_NORM_MEAN, IMG_NORM_STD
+
+    if pipeline is None:  # auto: overlap only where there is host work to hide
+        pipeline = gt_forward is not None or visu_to_save > 0
     device = next(model.net.parameters()).device
+    norm_mean = torch.from_numpy(IMG_NORM_MEAN).to(device)
+    norm_std = torch.from_numpy(IMG_NORM_STD).to(device)
     n_pred_verts = model.body_model.num_vertices if smplx2smpl is None else smplx2smpl.shape[0]
     if J_regressor_h36m is not None and J_regressor_h36m.shape[1] != n_pred_verts:
         raise ValueError(
@@ -192,9 +202,14 @@ def evaluate_dataset(
         x, annot = dataset[i]
         t1 = time.perf_counter()
         with torch.inference_mode():
+            xs = np.asarray(x[None])
+            if xs.dtype == np.uint8:  # u8 wire: normalize on the device
+                xs = torch.from_numpy(xs).to(device).float() / 255.0
+                xs = (xs - norm_mean) / norm_std
+            else:
+                xs = torch.from_numpy(xs.astype(np.float32, copy=False)).to(device)
             out = model.forward(
-                torch.from_numpy(np.asarray(x[None], np.float32)).to(device),
-                torch.from_numpy(np.asarray(annot["K"][None], np.float32)).to(device),
+                xs, torch.from_numpy(np.asarray(annot["K"][None], np.float32)).to(device),
                 det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
         timings["load"] += t1 - t0
         timings["dispatch"] += time.perf_counter() - t1
@@ -276,7 +291,7 @@ def evaluate_dataset(
                    f"pa_pve={meters['pa_pve'].avg:.1f}")
 
     t_start = time.perf_counter()
-    if gt_forward is not None or visu_to_save > 0:
+    if pipeline:
         in_flight = None
         for i in range(n):
             nxt = dispatch(i)  # the card starts image i ...
