@@ -46,6 +46,7 @@ from multihmr_tpu_torch.ops.detection import (
 from multihmr_tpu_torch.ops.fourier import fourier_ray_features
 from multihmr_tpu_torch.ops.image import tokens_to_grid
 from multihmr_tpu_torch.ops.rotations import rotmat_to_rotvec
+from multihmr_tpu_torch.utils.profiling import span
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -96,65 +97,68 @@ class MultiHMRNet(nn.Module):
         B = x.shape[0]
         g = c.grid_size
 
-        z = self.backbone(x)["patch_tokens"]  # [B, N, D] in compute dtype
+        with span("vit"):
+            z = self.backbone(x)["patch_tokens"]  # [B, N, D] in compute dtype
 
-        logits = self.mlp_classif(z)
-        scores_grid = clamped_sigmoid(logits.float())[..., 0].reshape(B, g, g)
-        if is_training:
-            if gt_det is None:
-                raise ValueError("training requires GT detections (gt_det)")
-            det = gt_det
-        else:
-            det = topk_detect(nms_maxpool(scores_grid, nms_kernel_size), det_thresh,
-                              c.max_people)
-        flat_idx = det.rows * g + det.cols
-        scores_det = torch.gather(scores_grid.reshape(B, -1), 1, flat_idx) * det.valid
+        with span("head"):
+            logits = self.mlp_classif(z)
+            scores_grid = clamped_sigmoid(logits.float())[..., 0].reshape(B, g, g)
+            if is_training:
+                if gt_det is None:
+                    raise ValueError("training requires GT detections (gt_det)")
+                det = gt_det
+            else:
+                det = topk_detect(nms_maxpool(scores_grid, nms_kernel_size), det_thresh,
+                                  c.max_people)
+            flat_idx = det.rows * g + det.cols
+            scores_det = torch.gather(scores_grid.reshape(B, -1), 1, flat_idx) * det.valid
 
-        z_grid = tokens_to_grid(z.float(), g)
-        z_central = gather_grid(z_grid, det)
-        offset = self.mlp_offset(z_central)
+            z_grid = tokens_to_grid(z.float(), g)
+            z_central = gather_grid(z_grid, det)
+            offset = self.mlp_offset(z_central)
 
-        # patch-centre pixels in (row, col) order → unit-distance rays
-        ar = torch.arange(g, device=x.device)
-        rr, cc = torch.meshgrid(ar, ar, indexing="ij")
-        pts = torch.stack([rr, cc], dim=-1).reshape(1, -1, 2).float()
-        pts = (pts * c.patch_size + c.patch_size // 2).expand(B, g * g, 2)
-        rays = inverse_perspective_projection(
-            pts, K, torch.ones((B, g * g, 1), device=x.device))
-        z_K = fourier_ray_features(
-            rays, c.camera_embedding_num_bands, c.camera_embedding_max_resolution
-        ).reshape(B, g, g, c.camera_embed_dim)
+            # patch-centre pixels in (row, col) order → unit-distance rays
+            ar = torch.arange(g, device=x.device)
+            rr, cc = torch.meshgrid(ar, ar, indexing="ij")
+            pts = torch.stack([rr, cc], dim=-1).reshape(1, -1, 2).float()
+            pts = (pts * c.patch_size + c.patch_size // 2).expand(B, g * g, 2)
+            rays = inverse_perspective_projection(
+                pts, K, torch.ones((B, g * g, 1), device=x.device))
+            z_K = fourier_ray_features(
+                rays, c.camera_embedding_num_bands, c.camera_embedding_max_resolution
+            ).reshape(B, g, g, c.camera_embed_dim)
 
-        z_central = torch.cat([z_central, gather_grid(z_K, det)], dim=-1)
-        kv_grid = torch.cat([z_grid, z_K], dim=-1)
+            z_central = torch.cat([z_central, gather_grid(z_K, det)], dim=-1)
+            kv_grid = torch.cat([z_grid, z_K], dim=-1)
 
-        loc = torch.stack([det.cols, det.rows], dim=-1).float()
-        loc = (loc + 0.5 + offset) * c.patch_size
+            loc = torch.stack([det.cols, det.rows], dim=-1).float()
+            loc = (loc + 0.5 + offset) * c.patch_size
 
-        head = self.x_attention_head(z_central, kv_grid, det)
+            head = self.x_attention_head(z_central, kv_grid, det)
 
-        dist_raw = head["cam"][..., 0:1]
-        focal = K[:, 0, 0][:, None, None]
-        dist = undo_focal_length_normalization(dist_raw, focal, fovn=c.fovn, img_size=c.img_size)
-        if c.nearness:
-            dist = undo_log_depth(dist)
-        if c.clip_dist:
-            dist = torch.clamp(dist, 0.0, 50.0)
+            dist_raw = head["cam"][..., 0:1]
+            focal = K[:, 0, 0][:, None, None]
+            dist = undo_focal_length_normalization(dist_raw, focal, fovn=c.fovn,
+                                                   img_size=c.img_size)
+            if c.nearness:
+                dist = undo_log_depth(dist)
+            if c.clip_dist:
+                dist = torch.clamp(dist, 0.0, 50.0)
 
-        rotmat = head["rotmat"]
-        return {
-            "scores": scores_grid,
-            "scores_det": scores_det,
-            "det": det,
-            "offset": offset,
-            "loc": loc,
-            "dist": dist,
-            "dist_postprocessed": dist_raw,
-            "rotmat": rotmat,
-            "rotvec": rotmat_to_rotvec(rotmat),
-            "shape": head["betas"],
-            "expression": head["expression"],
-        }
+            rotmat = head["rotmat"]
+            return {
+                "scores": scores_grid,
+                "scores_det": scores_det,
+                "det": det,
+                "offset": offset,
+                "loc": loc,
+                "dist": dist,
+                "dist_postprocessed": dist_raw,
+                "rotmat": rotmat,
+                "rotvec": rotmat_to_rotvec(rotmat),
+                "shape": head["betas"],
+                "expression": head["expression"],
+            }
 
 
 class MultiHMR:
@@ -223,9 +227,10 @@ class MultiHMR:
         B, Kcap = out["rotvec"].shape[:2]
         flat = lambda t: t.reshape((B * Kcap,) + t.shape[2:])
         K_det = K[:, None].expand(B, Kcap, 3, 3).reshape(B * Kcap, 3, 3)
-        smpl_out = self.smpl_layer(
-            flat(out["rotvec"]), flat(out["shape"]), flat(out["loc"]),
-            flat(out["dist"]), K_det, expression=flat(out["expression"]))
+        with span("body"):
+            smpl_out = self.smpl_layer(
+                flat(out["rotvec"]), flat(out["shape"]), flat(out["loc"]),
+                flat(out["dist"]), K_det, expression=flat(out["expression"]))
         out = dict(out)
         out.update({k: v.reshape((B, Kcap) + v.shape[1:]) for k, v in smpl_out.items()})
         return out
@@ -312,4 +317,5 @@ class Readback:
 
     def persons(self) -> list:
         """Wait for the copies; the per-image lists of person dicts."""
-        return self.build(self.wait())
+        with span("readback"):
+            return self.build(self.wait())

@@ -19,6 +19,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from multihmr_tpu_torch.utils.profiling import span
+
 
 def _on(device: torch.device):
     """The device context a chunk's kernels launch in."""
@@ -61,7 +63,8 @@ class DataParallel:
         pending = []
         for d, model, (xc, Kc) in self.chunks(x, K):
             with _on(d):
-                xd, Kd = prepare(xc, Kc, d)
+                with span("upload"):
+                    xd, Kd = prepare(xc, Kc, d)
                 pending.append(model.start_persons(model.forward(xd, Kd, **kw), fields))
         return pending
 
@@ -96,8 +99,9 @@ def folder_inference(model, images: Sequence[np.ndarray], K: np.ndarray,
         for start in range(0, len(images), batch_size):
             idxs = list(range(start, min(start + batch_size, len(images))))
             pad = [idxs[-1]] * (batch_size - len(idxs))
-            xb = np.stack([np.asarray(images[i], np.float32) for i in idxs + pad])
-            Kb = np.stack([K[i] for i in idxs + pad])
+            with span("stack"):
+                xb = np.stack([np.asarray(images[i], np.float32) for i in idxs + pad])
+                Kb = np.stack([K[i] for i in idxs + pad])
             pending = dp.start_persons(xb, Kb, fields=list(fields) if fields else None,
                                        det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
             results.extend(persons_in_order(pending)[:len(idxs)])

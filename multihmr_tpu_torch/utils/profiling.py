@@ -4,6 +4,9 @@ The one timing path of the port: the tools (``profile_model``,
 ``sweep_capacity``, ``train_smoke``, ``kernel_timing``) time through here.
 
   * :class:`Timer`: wall-clock spans with p50/p90 summaries (the JAX one);
+  * :func:`span`: a named range of the program's own in a profiler trace
+    (``multihmr.<name>``), at the boundaries of the folder path and of the
+    forward's stages;
   * :func:`profile_trace`: ``torch.profiler`` over the CPU and, where there
     is one, the card, written as a Chrome trace (Perfetto opens it);
   * :func:`device_op_table`: a trace's device time per kernel;
@@ -28,6 +31,7 @@ from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 
 class Timer:
@@ -57,6 +61,22 @@ class Timer:
     def __str__(self):
         s = self.summary()
         return f"{self.name}: " + ", ".join(f"{k}={v:.3g}" for k, v in s.items())
+
+
+SPAN_PREFIX = "multihmr."
+
+
+def span(name: str):
+    """A host range ``multihmr.<name>`` in a ``torch.profiler`` trace around
+    the block: the operators the block runs are its ``cpu_children``, and its
+    ``device_time_total`` the time of the kernels they launch.
+
+    ``torch.profiler.record_function`` would open a user annotation, which
+    the profiler copies onto the device timeline (a range from the first
+    kernel under it to the last, which a trace reader counts as device work).
+    This range has no such copy, costs about a microsecond with the profiler
+    off, and puts no node into a ``torch.export`` graph."""
+    return _RecordFunctionFast(SPAN_PREFIX + name)
 
 
 def device_line(device) -> str:

@@ -343,3 +343,51 @@ def test_tiny_slice_gpu_matches_cpu(dev):
     assert torch.equal(a["det"].rows, b["det"].rows.cpu())
     for k in ("loc", "dist", "rotvec", "v3d", "j3d"):
         assert _max_err(a[k], b[k].cpu()) <= 1e-3 * max(a[k].abs().max().item(), 1.0), k
+
+
+def test_spans_on_card(dev):
+    """A traced tiny ``folder_inference`` on the card: the stage spans hold
+    device time, none of the program's spans has a copy on the device
+    timeline, and the benchmark's four idle readings add up to the trace's
+    window less its busy time (``portbench/trace.py::Trace.busy_s``, which
+    would count such a copy) within 2 % of the window."""
+    from multihmr_tpu_torch.config import ModelConfig, ViTConfig
+    from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
+    from multihmr_tpu_torch.bodymodel.core import BodyModel
+    from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
+    from multihmr_tpu_torch.parallel.infer import folder_inference
+    from portbench import harness
+    from portbench.trace import Trace
+
+    cfg = ModelConfig(img_size=56, max_people=4, compute_dtype="float32",
+                      vit_override=ViTConfig(embed_dim=128, depth=2, num_heads=2))
+    net = MultiHMRNet(cfg).init_weights(torch.Generator().manual_seed(0)).eval().to(dev)
+    model = MultiHMR(cfg, BodyModel.from_arrays(synthetic_body_model(), dev), net=net)
+    rng = np.random.default_rng(0)
+    images = [rng.normal(size=(56, 56, 3)).astype(np.float32) for _ in range(8)]
+    K = np.array([[100.0, 0, 28], [0, 100, 28], [0, 0, 1]], np.float32)
+    run = lambda: folder_inference(model, images, K, det_thresh=0.0, batch_size=2)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    for name in ("vit", "head", "body"):
+        spans = [e for e in host if e.name == "multihmr." + name]
+        assert len(spans) == 4, name
+        assert all(e.device_time_total > 0 for e in spans), name
+    assert not [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name.startswith("multihmr.")]
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    tr = Trace(events, (hi - lo) / 1e6)
+    ctx = {"trace": tr}
+    idle = [harness.read_metric(m, ctx) for m in (
+        "stack_idle_ms.infer", "upload_idle_ms.infer", "readback_idle_ms.infer",
+        "other_idle_ms.infer")]
+    assert None not in idle
+    window_ms = tr.window_s * 1e3
+    assert abs(4 * sum(idle) - (window_ms - tr.busy_s * 1e3)) <= 0.02 * window_ms

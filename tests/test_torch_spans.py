@@ -1,0 +1,181 @@
+"""The port's spans (``utils/profiling.py::span``) and the benchmark's
+readers of them (``portbench/metrics/_spans.py``).
+
+A profiled ``folder_inference`` of a tiny model (a 2-block, 32-wide ViT at
+56 px, the synthetic body model) shows the six spans once per batch in the
+order the batch runs them, flat, none a user annotation, each holding the
+operators its stage runs; the outputs are bitwise those of an unprofiled
+run, and ``torch.export`` records no profiler node. The seven readers run
+on a hand-built trace whose readings are worked out below.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
+from multihmr_tpu_torch.bodymodel.core import BodyModel
+from multihmr_tpu_torch.config import ModelConfig, ViTConfig
+from multihmr_tpu_torch.io.export import export_program
+from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
+from multihmr_tpu_torch.parallel.infer import folder_inference
+from multihmr_tpu_torch.utils import profiling
+from portbench import harness
+from portbench.trace import Trace
+
+S = 56
+ORDER = ["stack", "upload", "vit", "head", "body", "readback"]
+CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = ModelConfig(img_size=S, max_people=4, compute_dtype="float32",
+                      vit_override=ViTConfig(embed_dim=32, depth=2, num_heads=2))
+    net = MultiHMRNet(cfg).init_weights(torch.Generator().manual_seed(0)).eval()
+    model = MultiHMR(cfg, BodyModel.from_arrays(synthetic_body_model(), "cpu"), net=net)
+    rng = np.random.default_rng(0)
+    images = [rng.normal(size=(S, S, 3)).astype(np.float32) for _ in range(4)]
+    K = np.array([[100.0, 0, 28], [0, 100, 28], [0, 0, 1]], np.float32)
+    run = lambda: folder_inference(model, images, K, det_thresh=0.0, batch_size=2)  # noqa: E731
+    plain = run()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = run()
+    return SimpleNamespace(model=model, plain=plain, traced=traced, events=prof.events())
+
+
+def _ours(events):
+    return sorted((e for e in events if e.name.startswith(profiling.SPAN_PREFIX)),
+                  key=lambda e: e.time_range.start)
+
+
+def test_spans_once_per_batch_in_order(tiny):
+    names = [e.name for e in _ours(tiny.events)]
+    assert names == ["multihmr." + n for n in ORDER] * 2
+
+
+def test_spans_flat_and_not_user_annotations(tiny):
+    for e in _ours(tiny.events):
+        assert not e.is_user_annotation, e.name
+        parent = e.cpu_parent
+        while parent is not None:
+            assert not parent.name.startswith(profiling.SPAN_PREFIX), (e.name, parent.name)
+            parent = parent.cpu_parent
+
+
+def _descendants(e) -> list:
+    out = []
+    for c in e.cpu_children:
+        out += [c] + _descendants(c)
+    return out
+
+
+@pytest.mark.parametrize("name", ORDER)
+def test_span_holds_its_stage_ops(tiny, name):
+    """Every operator that runs inside a span, on its thread, is one of the
+    span's descendants in the profiler's tree; the ViT's kernels' operators
+    (2 blocks: 2 attention, 4 LayerNorm) are under ``multihmr.vit`` and no
+    other span; each stage but the stack runs operators."""
+    for s in (e for e in _ours(tiny.events) if e.name == "multihmr." + name):
+        inside = [e for e in tiny.events
+                  if e is not s and e.thread == s.thread and not e.is_async
+                  and s.time_range.start <= e.time_range.start
+                  and e.time_range.end <= s.time_range.end]
+        under = _descendants(s)
+        assert {id(e) for e in inside} <= {id(e) for e in under}, name
+        assert bool(under) == (name != "stack"), name
+        ops = [e.name for e in under]
+        vit = name == "vit"
+        assert ops.count("mhmr::flash_fwd_t") == (2 if vit else 0), name
+        assert ops.count("mhmr::layernorm_cm") == (4 if vit else 0), name
+
+
+def test_outputs_bitwise_with_profiler_on_and_off(tiny):
+    assert len(tiny.plain) == len(tiny.traced) == 4
+    assert sum(len(p) for p in tiny.plain) > 0
+    for a_img, b_img in zip(tiny.plain, tiny.traced):
+        assert len(a_img) == len(b_img)
+        for a, b in zip(a_img, b_img):
+            assert a.keys() == b.keys()
+            for k in a:
+                assert np.array_equal(a[k], b[k]), k
+
+
+def test_export_graph_has_no_profiler_node(tiny):
+    program, _ = export_program(tiny.model, batch_size=1, det_thresh=0.0)
+    targets = [str(n.target) for n in program.graph.nodes]
+    assert not [t for t in targets if "profiler" in t or "record_function" in t]
+    assert any("aten" in t for t in targets)
+
+
+# -- the readers on a hand-built trace ---------------------------------------
+#
+# Two batches, times in us. Host spans: stack [0,100] [600,700], upload
+# [100,150] [700,750], vit [150,300] [750,900], head [300,350] [900,950],
+# body [350,380] [950,980], readback [380,600] [980,1200], and an operator
+# [1190,1250] after them: the window is [0, 1250]. Device work: copies
+# [120,140] [720,740], kernels [160,400] + [390,520] and [760,1100]: busy
+# 740, idle 510 in [0,120] [140,160] [520,720] [740,760] [1100,1250].
+# Excluded: a "multihmr.vit" device copy [160,1100], a user annotation's
+# device copy [0,1250] and a "portbench." one. Per batch (ms): stack
+# (100 + 100) / 2, upload (20 + 10 + 20 + 10) / 2, readback (80 + 100) / 2,
+# other (10 + 10 + 50) / 2.
+
+def _ev(name, start, end, device=False, dtt=0.0, user=False):
+    return SimpleNamespace(name=name, device_type=CUDA if device else CPU,
+                           time_range=SimpleNamespace(start=float(start), end=float(end)),
+                           device_time_total=float(dtt), is_user_annotation=user,
+                           is_async=False)
+
+
+def _synthetic(with_device=True):
+    host = []
+    for off, vit_dt, head_dt, body_dt in ((0, 300, 10, 5), (600, 340, 30, 7)):
+        for name, s, e, dtt in (("stack", 0, 100, 0), ("upload", 100, 150, 20),
+                                ("vit", 150, 300, vit_dt), ("head", 300, 350, head_dt),
+                                ("body", 350, 380, body_dt), ("readback", 380, 600, 0)):
+            host.append(_ev("multihmr." + name, off + s, off + e, dtt=dtt))
+    host.append(_ev("aten::add", 1190, 1250))
+    device = [_ev("Memcpy HtoD (Pageable -> Device)", 120, 140, True),
+              _ev("Memcpy HtoD (Pageable -> Device)", 720, 740, True),
+              _ev("gemm", 160, 400, True), _ev("flash", 390, 520, True),
+              _ev("gemm", 760, 1100, True),
+              _ev("multihmr.vit", 160, 1100, True),
+              _ev("someone.else", 0, 1250, True, user=True),
+              _ev("portbench.folder.folder_inference", 0, 1250, True, user=True)]
+    return Trace(host + (device if with_device else []), window_s=1250e-6)
+
+
+EXPECTED = {"vit_ms.infer": 0.320, "head_ms.infer": 0.020, "body_ms.infer": 0.006,
+            "stack_idle_ms.infer": 0.100, "upload_idle_ms.infer": 0.030,
+            "readback_idle_ms.infer": 0.090, "other_idle_ms.infer": 0.035}
+IDLE = [m for m in EXPECTED if "idle" in m]
+
+
+@pytest.mark.parametrize("metric", sorted(EXPECTED))
+def test_reader_on_synthetic_trace(metric):
+    got = harness.read_metric(metric, {"trace": _synthetic()})
+    assert got == pytest.approx(EXPECTED[metric], abs=1e-12)
+
+
+def test_idle_readers_add_up_to_window_less_busy():
+    ctx = {"trace": _synthetic()}
+    per_batch = sum(harness.read_metric(m, ctx) for m in IDLE)
+    assert per_batch * 2 == pytest.approx((1250 - 740) / 1e3, abs=1e-12)
+
+
+@pytest.mark.parametrize("metric", sorted(EXPECTED))
+def test_reader_none_without_device_events(metric):
+    assert harness.read_metric(metric, {"trace": _synthetic(with_device=False)}) is None
+    assert harness.read_metric(metric, {"trace": None}) is None
+
+
+def test_readers_in_benchmark():
+    entries = {m["name"]: m for m in harness.load_json(
+        harness.ROOT.parent / "BENCHMARK.json")["per_layer"]}
+    for name in EXPECTED:
+        m = entries[name]
+        assert (m["unit"], m["better"], m["source"], m["moves"], m["workloads"]) == (
+            "ms", "lower", "device_trace", "images_per_s", ["folder_896L_b8"])
