@@ -9,6 +9,12 @@ and the results are put back together on the host in order. A list may
 name a device twice: its chunks then run one after the other on the same
 replica. Training and the sharded forward use the multi-process mesh of
 parallel/sharding.py instead.
+
+:func:`folder_inference` keeps one batch in flight ahead of the host: it
+stages and enqueues batch i+1 before it reads batch i back. On a CUDA
+device the batch is staged in pinned host memory and copied on a copy
+stream of its own, so that the copy runs under the previous batch's
+forward; :data:`PIPELINE` counts the batches and those run ahead.
 """
 
 from __future__ import annotations
@@ -22,9 +28,40 @@ import torch
 from multihmr_tpu_torch.utils.profiling import span
 
 
+#: ``folder_inference``'s batches, and of them those whose forward was
+#: enqueued while an earlier batch of the same call was not yet read back
+PIPELINE = {"batches": 0, "ahead": 0}
+
+_COPY_STREAMS: dict = {}  # device -> its host-to-device copy stream
+
+
+def reset_pipeline() -> None:
+    PIPELINE.update(batches=0, ahead=0)
+
+
 def _on(device: torch.device):
     """The device context a chunk's kernels launch in."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _upload(x: torch.Tensor, K: torch.Tensor, device: torch.device):
+    """``prepare`` for ``folder_inference``'s staged batch. On a CUDA device the
+    copies are enqueued on the device's copy stream (the sources are
+    pinned, so they do not block the host), the current stream waits for
+    them, and the device tensors are marked in use by it, so that their
+    blocks are not reused before its forward has read them."""
+    if device.type != "cuda":
+        return x.to(device), K.to(device)
+    copy = _COPY_STREAMS.get(device)
+    if copy is None:
+        copy = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    compute = torch.cuda.current_stream(device)
+    with torch.cuda.stream(copy):
+        xd, Kd = x.to(device, non_blocking=True), K.to(device, non_blocking=True)
+    compute.wait_stream(copy)
+    xd.record_stream(compute)
+    Kd.record_stream(compute)
+    return xd, Kd
 
 
 class DataParallel:
@@ -84,7 +121,11 @@ def folder_inference(model, images: Sequence[np.ndarray], K: np.ndarray,
     Returns the per-image person lists. The images are padded to a full
     last batch (``batch_size``, default one image per device, a multiple of
     the device count) and the padding's outputs dropped. ``fields``
-    restricts the readback (see ``MultiHMR.extract_persons``)."""
+    restricts the readback (see ``MultiHMR.extract_persons``).
+
+    Each batch is enqueued (staged, uploaded, its forward and readback
+    copies launched) before the previous one is read back, so the host's
+    work for a batch runs under the previous batch's forward."""
     devices = list(mesh) if mesh is not None else [model.body_model.v_template.device]
     dp = DataParallel(model, devices)
     if batch_size is None:
@@ -94,15 +135,31 @@ def folder_inference(model, images: Sequence[np.ndarray], K: np.ndarray,
     K = np.asarray(K, np.float32)
     if K.ndim == 2:
         K = np.broadcast_to(K, (len(images), 3, 3))
+    pin = any(d.type == "cuda" for d in dp.devices)
+    fields = list(fields) if fields else None
     results: List[list] = []
+    unread = None  # (readbacks, images) of the batch enqueued last
     with torch.inference_mode():
         for start in range(0, len(images), batch_size):
             idxs = list(range(start, min(start + batch_size, len(images))))
             pad = [idxs[-1]] * (batch_size - len(idxs))
+            # torch owns the staging buffers, so the caching host allocator
+            # holds a pinned block back until the copies that read it have run
+            xb = torch.empty((batch_size, *np.shape(images[0])), dtype=torch.float32,
+                             pin_memory=pin)
+            Kb = torch.empty((batch_size, 3, 3), dtype=torch.float32, pin_memory=pin)
+            xn, Kn = xb.numpy(), Kb.numpy()
             with span("stack"):
-                xb = np.stack([np.asarray(images[i], np.float32) for i in idxs + pad])
-                Kb = np.stack([K[i] for i in idxs + pad])
-            pending = dp.start_persons(xb, Kb, fields=list(fields) if fields else None,
+                np.stack([np.asarray(images[i], np.float32) for i in idxs + pad], out=xn)
+                Kn[:] = K[idxs + pad]
+            pending = dp.start_persons(xb, Kb, fields=fields, prepare=_upload,
                                        det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
-            results.extend(persons_in_order(pending)[:len(idxs)])
+            del xb, Kb, xn, Kn  # their pinned blocks are free for the next batch once copied
+            PIPELINE["batches"] += 1
+            if unread is not None:
+                PIPELINE["ahead"] += 1
+                results.extend(persons_in_order(unread[0])[:unread[1]])
+            unread = pending, len(idxs)
+        if unread is not None:
+            results.extend(persons_in_order(unread[0])[:unread[1]])
     return results

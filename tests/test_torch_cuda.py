@@ -391,3 +391,86 @@ def test_spans_on_card(dev):
     assert None not in idle
     window_ms = tr.window_s * 1e3
     assert abs(4 * sum(idle) - (window_ms - tr.busy_s * 1e3)) <= 0.02 * window_ms
+
+
+def test_folder_pipeline_on_card(dev, tmp_path):
+    """``folder_inference``'s one-batch-ahead pipeline on the card, on the
+    tiny model of ``test_spans_on_card`` over 8 batches of 2 distinct
+    images: the persons are bitwise those of one forward per batch, read
+    back at once; every host-to-device copy of the profiled run is from
+    pinned memory, on a stream the kernels do not run on; and a copy runs
+    under a kernel of an earlier batch. The tiny forward takes less device
+    time than the host's work for a batch, so each forward here ends in a
+    sleep kernel of 4e7 clock cycles (20-40 ms at the H100's clocks), as
+    the 896_L forward's ~106 ms outlasts its host work; the sleep changes
+    no output. A kernel that a batch's copy
+    overlaps is an earlier batch's: the batch's own forward waits for it."""
+    import json
+
+    from multihmr_tpu_torch.config import ModelConfig, ViTConfig
+    from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
+    from multihmr_tpu_torch.bodymodel.core import BodyModel
+    from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
+    from multihmr_tpu_torch.parallel import infer
+
+    cfg = ModelConfig(img_size=56, max_people=4, compute_dtype="float32",
+                      vit_override=ViTConfig(embed_dim=128, depth=2, num_heads=2))
+    net = MultiHMRNet(cfg).init_weights(torch.Generator().manual_seed(0)).eval().to(dev)
+    model = MultiHMR(cfg, BodyModel.from_arrays(synthetic_body_model(), dev), net=net)
+    rng = np.random.default_rng(0)
+    images = [rng.normal(size=(56, 56, 3)).astype(np.float32) for _ in range(16)]
+    K = np.array([[100.0, 0, 28], [0, 100, 28], [0, 0, 1]], np.float32)
+
+    want = []
+    with torch.inference_mode():
+        for b in range(8):
+            x = torch.from_numpy(np.stack(images[2 * b:2 * b + 2])).to(dev)
+            Kb = torch.from_numpy(np.stack([K, K])).to(dev)
+            want += model.start_persons(model.forward(x, Kb, det_thresh=0.0)).persons()
+
+    plain = model.forward
+
+    def slow_forward(*args, **kw):
+        out = plain(*args, **kw)
+        torch.cuda._sleep(40_000_000)
+        return out
+
+    model.forward = slow_forward
+
+    def run():
+        return infer.folder_inference(model, images, K, det_thresh=0.0, batch_size=2)
+
+    run()
+    torch.cuda.synchronize()
+    infer.reset_pipeline()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    assert infer.PIPELINE == {"batches": 8, "ahead": 7}
+
+    assert len(got) == len(want) == 16 and sum(map(len, got)) > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            assert a.keys() == b.keys()
+            for k in a:
+                assert (a[k].dtype, a[k].shape, a[k].tobytes()) == (
+                    b[k].dtype, b[k].shape, b[k].tobytes()), k
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    gpu = [e for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy")]
+    h2d = [e for e in gpu if e["name"].startswith("Memcpy HtoD")]
+    kernels = [e for e in gpu if e["cat"] == "kernel"]
+    assert len(h2d) == 16, [e["name"] for e in h2d]  # x and K of each batch
+    assert all(e["name"] == "Memcpy HtoD (Pinned -> Device)" for e in h2d), {
+        e["name"] for e in h2d}
+    copy_streams = {e["args"]["stream"] for e in h2d}
+    kernel_streams = {e["args"]["stream"] for e in kernels}
+    assert len(copy_streams) == 1 and not copy_streams & kernel_streams, (
+        copy_streams, kernel_streams)
+    overlapped = [c for c in h2d if any(
+        k["ts"] < c["ts"] + c["dur"] and c["ts"] < k["ts"] + k["dur"] for k in kernels)]
+    assert overlapped, "no host-to-device copy ran under a kernel"

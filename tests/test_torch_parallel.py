@@ -308,6 +308,59 @@ def test_folder_inference_dp():
             np.testing.assert_allclose(a["v3d"], np.asarray(b["v3d"]), atol=FWD_V3D)
 
 
+def _one_batch_at_a_time(model, images, K, batch_size, mesh, fields):
+    """folder_inference's batches, each read back before the next is
+    stacked: the loop without its pipeline."""
+    from multihmr_tpu_torch.parallel.infer import DataParallel, persons_in_order
+
+    dp = DataParallel(model, mesh or ["cpu"])
+    out = []
+    with torch.inference_mode():
+        for start in range(0, len(images), batch_size):
+            idxs = list(range(start, min(start + batch_size, len(images))))
+            idxs_pad = idxs + [idxs[-1]] * (batch_size - len(idxs))
+            xb = np.stack([images[i] for i in idxs_pad])
+            Kb = np.stack([K] * batch_size)
+            out += persons_in_order(dp.start_persons(xb, Kb, fields=fields,
+                                                     det_thresh=0.1))[:len(idxs)]
+    return out
+
+
+@pytest.mark.parametrize("n_images,batch_size,mesh,fields", [
+    (6, 2, None, None),              # the batch size divides the count
+    (5, 2, None, None),              # a padded last batch
+    (3, 3, None, None),              # a single batch
+    (5, 4, ["cpu", "cpu"], None),    # two replicas, padded
+    (5, 2, None, ["loc", "v3d"]),    # a restricted readback
+])
+def test_folder_inference_pipelined_bitwise(n_images, batch_size, mesh, fields):
+    """folder_inference, which enqueues each batch before it reads the
+    previous one back, gives bitwise the persons of the same batches read
+    back one at a time, in image order; PIPELINE counts every batch, and
+    all but the first of a call as run ahead."""
+    from multihmr_tpu_torch.parallel import infer
+
+    model = ranks.port_model(_weights()[1])
+    rng = np.random.default_rng(n_images)
+    images = [rng.normal(size=(56, 56, 3)).astype(np.float32) for _ in range(n_images)]
+    K = np.array([[100.0, 0, 28], [0, 100, 28], [0, 0, 1]], np.float32)
+    infer.reset_pipeline()
+    got = infer.folder_inference(model, images, K, det_thresh=0.1, batch_size=batch_size,
+                                 mesh=mesh, fields=fields)
+    batches = -(-n_images // batch_size)
+    assert infer.PIPELINE == {"batches": batches, "ahead": batches - 1}
+    want = _one_batch_at_a_time(model, images, K, batch_size, mesh, fields)
+    assert len(got) == len(want) == n_images
+    assert sum(len(p) for p in got) > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            assert a.keys() == b.keys() == set(fields or a.keys())
+            for k in a:  # bytes: a slot's j2d may hold NaN (a joint at depth 0)
+                assert (a[k].dtype, a[k].shape, a[k].tobytes()) == (
+                    b[k].dtype, b[k].shape, b[k].tobytes()), k
+
+
 def test_dryrun_multichip_8(capsys):
     """parallel/dryrun.py on 8 spawned gloo ranks prints its OK line."""
     from multihmr_tpu_torch.parallel.dryrun import main

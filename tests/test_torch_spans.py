@@ -3,7 +3,7 @@ readers of them (``portbench/metrics/_spans.py``).
 
 A profiled ``folder_inference`` of a tiny model (a 2-block, 32-wide ViT at
 56 px, the synthetic body model) shows the six spans once per batch in the
-order the batch runs them, flat, none a user annotation, each holding the
+order the pipelined loop runs them, flat, none a user annotation, each holding the
 operators its stage runs; the outputs are bitwise those of an unprofiled
 run, and ``torch.export`` records no profiler node. The seven readers run
 on a hand-built trace whose readings are worked out below.
@@ -52,8 +52,11 @@ def _ours(events):
 
 
 def test_spans_once_per_batch_in_order(tiny):
+    """``folder_inference`` enqueues batch 1 (its stack, upload and forward)
+    before it reads batch 0 back, then reads both back in order."""
     names = [e.name for e in _ours(tiny.events)]
-    assert names == ["multihmr." + n for n in ORDER] * 2
+    enqueue = ["multihmr." + n for n in ORDER[:-1]]
+    assert names == enqueue * 2 + ["multihmr.readback"] * 2
 
 
 def test_spans_flat_and_not_user_annotations(tiny):
