@@ -3,6 +3,10 @@
 
 Plain fp32 torch. The JAX package runs this geometry at
 ``precision=HIGHEST``, so on CUDA the caller keeps TF32 off.
+
+The forward kinematics compose the bones one after another in a Python
+loop, under the span ``multihmr.fk`` (``utils/profiling.py::span``);
+:data:`FK` counts its calls and the compositions they took.
 """
 
 from __future__ import annotations
@@ -12,6 +16,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from multihmr_tpu_torch.utils.profiling import span
+
+#: ``_forward_kinematics``'s calls, and the sequential bone compositions
+#: they took (one a bone a call: 55 for SMPL-X, 163 for Anny)
+FK = {"calls": 0, "steps": 0}
 
 _FLOAT_FIELDS = ("v_template", "shapedirs", "exprdirs", "posedirs",
                  "J_regressor", "lbs_weights", "lmk_bary_coords")
@@ -60,6 +70,10 @@ class BodyModel:
                 + self.lmk_faces_idx.shape[0])
 
 
+def reset_fk() -> None:
+    FK.update(calls=0, steps=0)
+
+
 def _forward_kinematics(rotmats, joints, parents):
     """Compose local rotations ``[B, J, 3, 3]`` along the tree (parents[j] < j).
 
@@ -68,18 +82,21 @@ def _forward_kinematics(rotmats, joints, parents):
     ``A_j = [R_j | posed_j - R_j rest_j]``."""
     J = rotmats.shape[1]
     world_R, world_t = [None] * J, [None] * J
-    for j in range(J):
-        p = parents[j]
-        if p < 0:
-            world_R[j] = rotmats[:, j]
-            world_t[j] = joints[:, j]
-        else:
-            t_j = joints[:, j] - joints[:, p]
-            world_R[j] = world_R[p] @ rotmats[:, j]
-            world_t[j] = (world_R[p] @ t_j[..., None])[..., 0] + world_t[p]
-    Rw = torch.stack(world_R, dim=1)
-    posed = torch.stack(world_t, dim=1)
-    rel_t = posed - torch.einsum("bjmn,bjn->bjm", Rw, joints)
+    with span("fk"):
+        for j in range(J):
+            p = parents[j]
+            if p < 0:
+                world_R[j] = rotmats[:, j]
+                world_t[j] = joints[:, j]
+            else:
+                t_j = joints[:, j] - joints[:, p]
+                world_R[j] = world_R[p] @ rotmats[:, j]
+                world_t[j] = (world_R[p] @ t_j[..., None])[..., 0] + world_t[p]
+        Rw = torch.stack(world_R, dim=1)
+        posed = torch.stack(world_t, dim=1)
+        rel_t = posed - torch.einsum("bjmn,bjn->bjm", Rw, joints)
+    FK["calls"] += 1
+    FK["steps"] += J
     return posed, Rw, rel_t
 
 

@@ -41,10 +41,7 @@ through PIL, as in the JAX demo. The overlay opens the original image.
 
 An Anny-family name (``multiHMR_672_L_anny``) runs ``MultiHMRAnny`` with the
 demo's FOV-``--fov`` K, so its persons' ``K`` is that K (``K_regressed`` and
-``fov`` are the network's own). This is a deliberate difference: the JAX
-demo raises a ``TypeError`` for such a name, as it passes ``fields=`` to
-``MultiHMRAnny.extract_persons``, which takes none; here it is called
-without it.
+``fov`` are the network's own).
 """
 
 from __future__ import annotations

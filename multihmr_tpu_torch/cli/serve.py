@@ -16,9 +16,9 @@ the ViT's channels-major stream, K1 + K2; ``ring``: the standard one, K5).
 ``--dp`` serves data-parallel over every local card (parallel/infer.py: a
 replica of the weights each, each batch cut into equal chunks), ``max_batch``
 rounded up to a multiple of their count; not with ``--artifact``. An
-Anny-family name is refused at start: the server reads back
-``extract_persons(out, fields)``, which ``MultiHMRAnny`` does not take (the
-JAX server fails on every request for such a name).
+Anny-family name is refused at start: the server's batches, answers and
+overlays are built for the SMPL-X family alone (the JAX server fails on
+every request for such a name).
 
 ``--artifact``: serve a ``tools/export_model.py`` artifact (``io/export.py``).
 The name, weights, stream, batch shape and detection parameters come from
@@ -102,9 +102,9 @@ def build_server(args):
     meta = None if args.artifact is None else _artifact_meta(args)
     if "anny" in args.model_name:
         raise ValueError(
-            f"{args.model_name}: the server reads back extract_persons(out, fields), "
-            "which the Anny family does not take (the JAX server fails on every request "
-            "for it); serve a SMPL-X configuration")
+            f"{args.model_name}: the server is built for the SMPL-X family alone, not the "
+            "Anny family (the JAX server fails on every request for it); serve a SMPL-X "
+            "configuration")
     if args.device.startswith("cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda but torch sees no CUDA card; give "

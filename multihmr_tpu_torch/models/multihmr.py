@@ -198,17 +198,10 @@ class MultiHMR:
         if self.mesh is not None:
             raise ValueError("replica() copies a single-device model, not a rank's shards")
         twin = copy.copy(self)
-        twin.body_model = dataclasses.replace(self.body_model, **{
-            f.name: getattr(self.body_model, f.name).to(device)
-            for f in dataclasses.fields(self.body_model)
-            if isinstance(getattr(self.body_model, f.name), torch.Tensor)})
+        twin.body_model = moved(self.body_model, device)
         twin.smpl_layer = copy.copy(self.smpl_layer)
         twin.smpl_layer.model = twin.body_model
-        with torch.device("meta"):
-            twin.net = MultiHMRNet(self.cfg, tp_mode=self.tp_mode)
-        twin.net.load_state_dict({k: v.to(device) for k, v in self.net.state_dict().items()},
-                                 strict=True, assign=True)
-        twin.net.train(self.net.training)
+        twin.net = net_copy(self.net, MultiHMRNet, self.cfg, self.tp_mode, device)
         return twin
 
     def unsharded(self) -> "MultiHMR":
@@ -252,6 +245,30 @@ class MultiHMR:
         tensors = {"valid": out["det"].valid,
                    **{name: out[src] for name, src in _person_keys(fields)}}
         return Readback(tensors, persons_from_host)
+
+
+def moved(model, device):
+    """A copy of the frozen dataclass ``model`` (a body model) with its
+    tensors, and those of its dataclass fields, on ``device``."""
+    kw = {}
+    for f in dataclasses.fields(model):
+        v = getattr(model, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v.to(device)
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = moved(v, device)
+    return dataclasses.replace(model, **kw)
+
+
+def net_copy(net: nn.Module, net_cls, cfg, tp_mode: str, device) -> nn.Module:
+    """A copy of ``net`` on ``device``: built on the meta device, its weights
+    assigned from ``net``'s state dict (their dtypes kept), then moved, which
+    brings the buffers outside the state dict along."""
+    with torch.device("meta"):
+        twin = net_cls(cfg, tp_mode=tp_mode)
+    twin.load_state_dict({k: v.to(device) for k, v in net.state_dict().items()},
+                         strict=True, assign=True)
+    return twin.to(device).train(net.training)
 
 
 # (person key, output key) of extract_persons, in its order

@@ -11,13 +11,20 @@ does not control pinned to identity (``USEFUL_ROTMAT``) → the Anny body
 model → meshes as ``[B, K]`` slots, valid ones first.
 
 Precision: the ViT in ``cfg.compute_dtype``; the heads, the decoder and the
-body model in fp32. Inference only, as in the JAX package (no training
+body model in fp32. The spans (``utils/profiling.py::span``) are
+``models/multihmr.py``'s: ``multihmr.vit`` around the backbone,
+``multihmr.head`` around the rest of the net with ``multihmr.decoder``
+inside it, and ``multihmr.body`` around the body model (which holds
+``multihmr.fk``). ``replica``, ``extract_persons`` and ``start_persons``
+keep ``MultiHMR``'s contract, so ``parallel/infer.py::folder_inference``
+runs this family too. Inference only, as in the JAX package (no training
 path calls it, so its ``is_training``/``gt_det`` arguments are not ported);
 ``batch_mode="map"`` is not ported either (the batch is one fused forward).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional
@@ -34,7 +41,7 @@ from multihmr_tpu_torch.models.hph import (
     MaskedSelfAttention,
     init_linear_,
 )
-from multihmr_tpu_torch.models.multihmr import DTYPES, Readback, RegressionMLP
+from multihmr_tpu_torch.models.multihmr import DTYPES, Readback, RegressionMLP, moved, net_copy
 from multihmr_tpu_torch.models.vit import DINOv2ViT
 from multihmr_tpu_torch.ops.camera import inverse_perspective_projection, perspective_projection
 from multihmr_tpu_torch.ops.detection import gather_grid, nms_maxpool, topk_detect
@@ -45,6 +52,7 @@ from multihmr_tpu_torch.ops.rotations import (
     rotation_to_homogeneous,
     rotmat_to_rotvec,
 )
+from multihmr_tpu_torch.utils.profiling import span
 
 # which of the 163 bone rotations are regressed (1) or pinned to identity (0)
 USEFUL_ROTMAT = np.array(
@@ -123,13 +131,16 @@ class AnnyEncoder(nn.Module):
         self.mlp_fov_unique = RegressionMLP(d, d, 1)
 
     def forward(self, x) -> dict:
+        return self.read(self.backbone(x))
+
+    def read(self, out: dict) -> dict:
+        """The backbone's outputs → scores, K and FOV, and the feature grid."""
         c = self.cfg
-        out = self.backbone(x)
         feat = tokens_to_grid(out["patch_tokens"].float(), c.grid_size)  # [B, g, g, D]
         scores_logits = self.mlp_det(feat)[..., 0]
         fov = math.pi * torch.sigmoid(self.mlp_fov_unique(out["cls_token"].float()))  # [B, 1]
         focal = (c.img_size / 2.0) / torch.tan(fov / 2.0)
-        K = torch.zeros((x.shape[0], 3, 3), device=x.device)
+        K = torch.zeros((feat.shape[0], 3, 3), device=feat.device)
         K[:, 0, 0] = K[:, 1, 1] = focal[:, 0]
         K[:, 0, 2] = K[:, 1, 2] = c.img_size / 2.0
         K[:, 2, 2] = 1.0
@@ -205,14 +216,19 @@ class MultiHMRAnnyNet(nn.Module):
     def forward(self, x, K=None, det_thresh: float = 0.3, nms_kernel_size: int = 3) -> dict:
         """``x [B, S, S, 3]`` normalized NHWC; ``K [B, 3, 3]``, or None to use
         the regressed one."""
+        with span("vit"):
+            tokens = self.encoder.backbone(x)
+        with span("head"):
+            return self._head(self.encoder.read(tokens), K, det_thresh, nms_kernel_size)
+
+    def _head(self, enc: dict, K, det_thresh: float, nms_kernel_size: int) -> dict:
         c = self.cfg
-        B = x.shape[0]
-        enc = self.encoder(x)
         K_used = enc["K"] if K is None else K
         det = topk_detect(nms_maxpool(enc["scores"], nms_kernel_size), det_thresh, c.max_people)
 
         dec_emb = self.dec_to_token(enc["feat"]) + self.dec_pos_emb[None]
-        y = self.decoder(gather_grid(dec_emb, det), grid_to_tokens(dec_emb), det.valid)
+        with span("decoder"):
+            y = self.decoder(gather_grid(dec_emb, det), grid_to_tokens(dec_emb), det.valid)
 
         offset = self.mlp_offset(y)
         loc = torch.stack([det.cols, det.rows], dim=-1).float()
@@ -225,12 +241,12 @@ class MultiHMRAnnyNet(nn.Module):
 
         shape = torch.sigmoid(self.mlp_shape(y))
 
-        Kcap, J = y.shape[1], c.n_joints
+        (B, Kcap), J = y.shape[:2], c.n_joints
         init_pose = self.init_body_pose
         rot6d = self.mlp_pose(torch.cat([y, init_pose.expand(B, Kcap, J * 6)], dim=-1))
         rotmat = rot6d_cols_to_rotmat((rot6d + init_pose).reshape(B, Kcap, J, 6))
         useful = self.useful_rotmat
-        rotmat = useful * rotmat + (1.0 - useful) * torch.eye(3, device=x.device)
+        rotmat = useful * rotmat + (1.0 - useful) * torch.eye(3, device=y.device)
 
         return {
             "det": det,
@@ -273,65 +289,93 @@ class MultiHMRAnny:
         out = self.net(x, K, det_thresh=det_thresh, nms_kernel_size=nms_kernel_size)
         return self.apply_body_model(out)
 
+    def replica(self, device) -> "MultiHMRAnny":
+        """This model on ``device``: itself where it is already there, else a
+        copy of its weights (their dtypes kept) and body model there."""
+        device = torch.device(device)
+        if device == self.body_model.v_template.device:
+            return self
+        if self.mesh is not None:
+            raise ValueError("replica() copies a single-device model, not a rank's shards")
+        twin = copy.copy(self)
+        twin.body_model = moved(self.body_model, device)
+        twin.net = net_copy(self.net, MultiHMRAnnyNet, self.cfg, self.tp_mode, device)
+        return twin
+
     def apply_body_model(self, out: dict) -> dict:
         """Run the body model on all ``B*K`` slots, re-centre each mesh on
         its person-centre bone at ``transl``, and project with ``out['K']``."""
         B, Kcap = out["rotmat"].shape[:2]
         flat = lambda t: t.reshape((B * Kcap,) + t.shape[2:])  # noqa: E731
-        shape = flat(out["shape"])
-        phen = {name: shape[:, i] for name, i in zip(USED_PHENOTYPES, self._pheno_idx)}
-        body = anny_forward(self.body_model, rotation_to_homogeneous(flat(out["rotmat"])), phen)
-        c = self.person_center_idx
-        center = body["joints"][:, c:c + 1]
-        transl = flat(out["transl"])[:, None]
-        v3d = body["vertices"] - center + transl
-        j3d = body["joints"] - center + transl
-        K_det = out["K"][:, None].expand(B, Kcap, 3, 3).reshape(B * Kcap, 3, 3)
         unflat = lambda t: t.reshape((B, Kcap) + t.shape[1:])  # noqa: E731
+        with span("body"):
+            shape = flat(out["shape"])
+            phen = {name: shape[:, i] for name, i in zip(USED_PHENOTYPES, self._pheno_idx)}
+            body = anny_forward(self.body_model, rotation_to_homogeneous(flat(out["rotmat"])),
+                                phen)
+            c = self.person_center_idx
+            center = body["joints"][:, c:c + 1]
+            transl = flat(out["transl"])[:, None]
+            v3d = body["vertices"] - center + transl
+            j3d = body["joints"] - center + transl
+            K_det = out["K"][:, None].expand(B, Kcap, 3, 3).reshape(B * Kcap, 3, 3)
+            v2d = perspective_projection(v3d, K_det)
+            j2d = perspective_projection(j3d, K_det)
         out = dict(out)
         out.update({
-            "v3d": unflat(v3d), "j3d": unflat(j3d),
-            "v2d": unflat(perspective_projection(v3d, K_det)),
-            "j2d": unflat(perspective_projection(j3d, K_det)),
+            "v3d": unflat(v3d), "j3d": unflat(j3d), "v2d": unflat(v2d), "j2d": unflat(j2d),
             "transl_pelvis": unflat(j3d[:, :1]),
             "blendshape_coeffs": unflat(body["blendshape_coeffs"]),
         })
         return out
 
-    def extract_persons(self, out: dict) -> list:
+    def extract_persons(self, out: dict, fields: Optional[list] = None) -> list:
         """Padded ``[B, K]`` outputs → per-image lists of person dicts of
         numpy arrays, sorted near to far, each with the image's ``K``,
-        ``K_regressed`` and ``fov``."""
+        ``K_regressed`` and ``fov``. ``fields`` restricts which keys are read
+        back to the host (default: all); the depth that orders the persons
+        is read back whatever ``fields`` holds."""
         valid = out["det"].valid.cpu().numpy()
         # valid slots are a prefix of K: read back only [:, :kmax]
         kmax = int(valid.sum(-1).max())
-        host = {k: out[k][:, :kmax].cpu().numpy() for k in _PERSON_KEYS}
-        host.update({k: out[k].cpu().numpy() for k in _IMAGE_KEYS})
+        host = {name: (t if name in _IMAGE_NAMES else t[:, :kmax]).cpu().numpy()
+                for name, t in _anny_keys(out, fields).items()}
         return _anny_persons_from_host(dict(host, valid=valid))
 
-    def start_persons(self, out: dict) -> Readback:
+    def start_persons(self, out: dict, fields: Optional[list] = None) -> Readback:
         """Enqueue :meth:`extract_persons`' device→host copies (every slot)
         and return at once; ``.persons()`` waits for them."""
-        src = dict(out, valid=out["det"].valid)
-        return Readback({k: src[k] for k in ("valid",) + _PERSON_KEYS + _IMAGE_KEYS},
+        return Readback(dict(_anny_keys(out, fields), valid=out["det"].valid),
                         _anny_persons_from_host)
 
 
-_PERSON_KEYS = ("loc", "transl", "transl_pelvis", "rotvec", "rotmat", "shape", "v3d", "j3d",
-                "j2d")
-_IMAGE_KEYS = ("K", "K_regressed", "fov_regressed")
+# (person key, output key) of extract_persons: a field per slot, then per image
+_PERSON_FIELDS = (("loc", "loc"), ("transl", "transl"), ("transl_pelvis", "transl_pelvis"),
+                  ("rotvec", "rotvec"), ("rotmat", "rotmat"), ("shape", "shape"),
+                  ("v3d", "v3d"), ("j3d", "j3d"), ("j2d", "j2d"))
+_IMAGE_FIELDS = (("K", "K"), ("K_regressed", "K_regressed"), ("fov", "fov_regressed"))
+_IMAGE_NAMES = {name for name, _ in _IMAGE_FIELDS}
+
+
+def _anny_keys(out: dict, fields) -> dict:
+    """{host name: output tensor} to read back for ``fields`` (None: all),
+    with ``depth``, the slots' distances along the optical axis."""
+    keys = {name: out[src] for name, src in _PERSON_FIELDS + _IMAGE_FIELDS
+            if fields is None or name in fields}
+    keys["depth"] = out["transl"][..., 2]
+    return keys
 
 
 def _anny_persons_from_host(host: dict) -> list:
-    """Host arrays (``valid`` ``[B, K]``, the person fields ``[B, k, ...]``
-    with ``k`` at least the largest count of valid slots, the image fields
-    ``[B, ...]``) → per-image lists of persons, near to far."""
-    valid = host["valid"]
+    """Host arrays (``valid`` ``[B, K]``, ``depth`` and the person fields
+    ``[B, k, ...]`` with ``k`` at least the largest count of valid slots,
+    the image fields ``[B, ...]``) → per-image lists of persons, near to
+    far."""
+    valid, depth = host.pop("valid"), host.pop("depth")
     result = []
     for b in range(valid.shape[0]):
-        persons = [dict({k: host[k][b, i] for k in _PERSON_KEYS}, K=host["K"][b],
-                        K_regressed=host["K_regressed"][b], fov=host["fov_regressed"][b])
-                   for i in range(host["loc"].shape[1]) if valid[b, i] > 0]
-        persons.sort(key=lambda p: float(p["transl"][2]))
-        result.append(persons)
+        slots = sorted((i for i in range(depth.shape[1]) if valid[b, i] > 0),
+                       key=lambda i: float(depth[b, i]))
+        result.append([{name: a[b] if name in _IMAGE_NAMES else a[b, i]
+                        for name, a in host.items()} for i in slots])
     return result
