@@ -6,12 +6,17 @@ Plain fp32 torch. The JAX package runs this geometry at
 
 The forward kinematics compose the bones one after another in a Python
 loop, under the span ``multihmr.fk`` (``utils/profiling.py::span``);
-:data:`FK` counts its calls and the compositions they took.
+:data:`FK` counts its calls and the compositions they took. On a card under
+``inference_mode`` the loop's kernels are captured once per input signature
+into a CUDA graph and replayed with one launch (:data:`FK_GRAPH` counts
+both); anywhere else (the CPU, autograd, ``torch.export``, inside another
+capture) the loop runs as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -22,6 +27,13 @@ from multihmr_tpu_torch.utils.profiling import span
 #: ``_forward_kinematics``'s calls, and the sequential bone compositions
 #: they took (one a bone a call: 55 for SMPL-X, 163 for Anny)
 FK = {"calls": 0, "steps": 0}
+#: the FK's CUDA graphs: captures made (one a key of ``_GRAPHS``) and calls
+#: replayed from one
+FK_GRAPH = {"captures": 0, "replays": 0}
+# (device, stream, dtypes, shape, strides, parents) -> (graph, static rotmats,
+# static joints, static outputs)
+_GRAPHS: dict = {}
+_GRAPHS_LOCK = threading.Lock()
 
 _FLOAT_FIELDS = ("v_template", "shapedirs", "exprdirs", "posedirs",
                  "J_regressor", "lbs_weights", "lmk_bary_coords")
@@ -72,6 +84,71 @@ class BodyModel:
 
 def reset_fk() -> None:
     FK.update(calls=0, steps=0)
+    FK_GRAPH.update(captures=0, replays=0)
+
+
+def _compose(rotmats, joints, parents):
+    """The bones one after another: the eager path, and what the graph
+    captures."""
+    J = rotmats.shape[1]
+    world_R, world_t = [None] * J, [None] * J
+    for j in range(J):
+        p = parents[j]
+        if p < 0:
+            world_R[j] = rotmats[:, j]
+            world_t[j] = joints[:, j]
+        else:
+            t_j = joints[:, j] - joints[:, p]
+            world_R[j] = world_R[p] @ rotmats[:, j]
+            world_t[j] = (world_R[p] @ t_j[..., None])[..., 0] + world_t[p]
+    Rw = torch.stack(world_R, dim=1)
+    posed = torch.stack(world_t, dim=1)
+    rel_t = posed - torch.einsum("bjmn,bjn->bjm", Rw, joints)
+    return posed, Rw, rel_t
+
+
+def _graph_engages(rotmats) -> bool:
+    """A card, no autograd, no tracer and no capture around the call."""
+    return (rotmats.is_cuda and torch.is_inference_mode_enabled()
+            and not torch.compiler.is_compiling()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _capture(rotmats, joints, parents):
+    """Static input buffers laid out as these inputs (dense ones keep their
+    strides: cuBLAS rounds a transposed 3 x 3 operand otherwise), and the
+    loop over them captured into a graph (warmed up first on the capture's
+    side stream)."""
+    R = torch.empty_like(rotmats)
+    t = torch.empty_like(joints)
+    with torch.cuda.device(rotmats.device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _compose(R, t, parents)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            outs = _compose(R, t, parents)
+    FK_GRAPH["captures"] += 1
+    return graph, R, t, outs
+
+
+def _replay(rotmats, joints, parents):
+    """The loop's outputs from its graph, captured at the first call of this
+    key; clones, so that no caller holds what the next replay overwrites."""
+    dev = rotmats.device
+    key = (dev, torch.cuda.current_stream(dev), rotmats.dtype, joints.dtype, rotmats.shape,
+           rotmats.stride(), joints.stride(), parents)
+    with _GRAPHS_LOCK:
+        entry = _GRAPHS.get(key)
+        if entry is None:
+            entry = _GRAPHS[key] = _capture(rotmats, joints, parents)
+        graph, R, t, outs = entry
+        R.copy_(rotmats)
+        t.copy_(joints)
+        graph.replay()
+        FK_GRAPH["replays"] += 1
+        return tuple(o.clone() for o in outs)
 
 
 def _forward_kinematics(rotmats, joints, parents):
@@ -80,23 +157,13 @@ def _forward_kinematics(rotmats, joints, parents):
     Returns (posed joints ``[B, J, 3]``, world rotations ``[B, J, 3, 3]``,
     skinning translations ``[B, J, 3]``) with the skinning transform
     ``A_j = [R_j | posed_j - R_j rest_j]``."""
-    J = rotmats.shape[1]
-    world_R, world_t = [None] * J, [None] * J
     with span("fk"):
-        for j in range(J):
-            p = parents[j]
-            if p < 0:
-                world_R[j] = rotmats[:, j]
-                world_t[j] = joints[:, j]
-            else:
-                t_j = joints[:, j] - joints[:, p]
-                world_R[j] = world_R[p] @ rotmats[:, j]
-                world_t[j] = (world_R[p] @ t_j[..., None])[..., 0] + world_t[p]
-        Rw = torch.stack(world_R, dim=1)
-        posed = torch.stack(world_t, dim=1)
-        rel_t = posed - torch.einsum("bjmn,bjn->bjm", Rw, joints)
+        if _graph_engages(rotmats):
+            posed, Rw, rel_t = _replay(rotmats, joints, parents)
+        else:
+            posed, Rw, rel_t = _compose(rotmats, joints, parents)
     FK["calls"] += 1
-    FK["steps"] += J
+    FK["steps"] += rotmats.shape[1]
     return posed, Rw, rel_t
 
 

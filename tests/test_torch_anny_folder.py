@@ -11,12 +11,16 @@ seeded weights (``portbench/weights_anny.py``):
 * the spans come once a batch in the order ``vit``, ``head`` holding
   ``decoder``, ``body`` holding ``fk``; ``FK`` counts 163 compositions a
   call (55 for an SMPL-X skeleton);
+* the forward kinematics replay a CUDA graph only on a card under
+  ``inference_mode`` outside a tracer or a capture: everywhere else the
+  plain loop runs, bitwise as before, and gradients flow through it;
 * the port against the plain reference ``portbench/reference/anny.py`` in
   fp32: the same cells, and every field within a tolerance that a bf16
   decoder breaks.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -180,6 +184,81 @@ def test_fk_counts_compositions(tiny, family, bones):
         bm = core.BodyModel.from_arrays(synthetic_body_model(num_joints=55), "cpu")
         core.lbs_forward(bm, torch.eye(3).expand(3, 55, 3, 3), torch.zeros(3, 10))
     assert core.FK == {"calls": 1, "steps": bones}
+
+
+def _loop_fk(rotmats, joints, parents):
+    """The forward kinematics as the plain loop has always composed them."""
+    world_R, world_t = [], []
+    for j, p in enumerate(parents):
+        if p < 0:
+            world_R.append(rotmats[:, j])
+            world_t.append(joints[:, j])
+        else:
+            world_R.append(world_R[p] @ rotmats[:, j])
+            world_t.append((world_R[p] @ (joints[:, j] - joints[:, p])[..., None])[..., 0]
+                           + world_t[p])
+    Rw, posed = torch.stack(world_R, dim=1), torch.stack(world_t, dim=1)
+    return posed, Rw, posed - torch.einsum("bjmn,bjn->bjm", Rw, joints)
+
+
+def _fk_inputs(parents, n, seed=0):
+    """Seeded rotations ``[n, J, 3, 3]`` and rest joints ``[n, J, 3]``."""
+    g = torch.Generator().manual_seed(seed)
+    J = len(parents)
+    return (torch.linalg.qr(torch.randn(n, J, 3, 3, generator=g)).Q,
+            torch.randn(n, J, 3, generator=g))
+
+
+# (on a card, under inference_mode, compiling, capturing) -> whether the graph engages
+GRAPH_CONDITIONS = {
+    "card": ((True, True, False, False), True),
+    "cpu": ((False, True, False, False), False),
+    "grad": ((True, False, False, False), False),
+    "compiling": ((True, True, True, False), False),
+    "capturing": ((True, True, False, True), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CONDITIONS))
+def test_fk_graph_engages_only_on_card_in_inference(tiny, monkeypatch, case):
+    """``_graph_engages`` on a stand-in for a card tensor, with the tracer's
+    and the capture's state set; then, in each case but the card's, the real
+    forward kinematics on the CPU under the same state: the plain loop, no
+    capture or replay, and the outputs bitwise those of the loop."""
+    (cuda, inference, compiling, capturing), engages = GRAPH_CONDITIONS[case]
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: compiling)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    mode = torch.inference_mode if inference else torch.enable_grad
+    with mode():
+        assert core._graph_engages(SimpleNamespace(is_cuda=cuda)) is engages
+    if engages:
+        return
+    parents = tiny.model.body_model.base.parents
+    rotmats, joints = _fk_inputs(parents, 6)
+    core.reset_fk()
+    with mode():
+        got = core._forward_kinematics(rotmats, joints, parents)
+    assert core.FK_GRAPH == {"captures": 0, "replays": 0}
+    assert core.FK == {"calls": 1, "steps": len(parents)}
+    for a, b in zip(got, _loop_fk(rotmats, joints, parents)):
+        assert (a.dtype, a.shape, a.numpy().tobytes()) == (b.dtype, b.shape, b.numpy().tobytes())
+
+
+def test_fk_gradients_flow_through_the_loop(tiny):
+    """With grad on, the gradients of the rotations and the joints are those
+    of the plain loop, bitwise."""
+    parents = tiny.model.body_model.base.parents
+    weights = [torch.randn(o.shape, generator=torch.Generator().manual_seed(9))
+               for o in _loop_fk(*_fk_inputs(parents, 4), parents)]
+    grads = []
+    for fk in (core._forward_kinematics, _loop_fk):
+        rotmats, joints = (x.requires_grad_() for x in _fk_inputs(parents, 4))
+        loss = sum((o * w).sum() for o, w in zip(fk(rotmats, joints, parents), weights))
+        grads.append(torch.autograd.grad(loss, (rotmats, joints)))
+    assert core.FK_GRAPH == {"captures": 0, "replays": 0}
+    for a, b in zip(*grads):
+        assert a.abs().sum() > 0
+        assert torch.equal(a, b)
 
 
 def _against_reference(tiny, bf16_decoder=False):

@@ -391,6 +391,57 @@ def test_spans_on_card(dev):
     assert None not in idle
     window_ms = tr.window_s * 1e3
     assert abs(4 * sum(idle) - (window_ms - tr.busy_s * 1e3)) <= 0.02 * window_ms
+    assert harness.read_metric("fk_graph_pct.infer", ctx) == 100.0
+
+
+@pytest.mark.parametrize("family,n", [("anny", 128), ("smplx", 16)])
+def test_fk_graph_replays_the_loop(dev, family, n):
+    """The forward kinematics under ``inference_mode`` replay a CUDA graph
+    captured once a key: on two input sets through one key the outputs are
+    bitwise the plain loop's (run with grad off outside ``inference_mode``),
+    those of the first call are unchanged by the second (clones, not views
+    of the graph's buffers), and a second shape makes a second capture.
+    Anny (the synthetic 163-bone tree at the folder cell's 128 slots) passes
+    the ``[..., :3, :3]`` view of its homogeneous rotations; the 55-bone
+    tree here takes the QR factor as it comes, each 3 x 3 column-major,
+    whose layout the graph's buffer has to keep (cuBLAS rounds a transposed
+    operand otherwise: a few ulps down the chain)."""
+    from multihmr_tpu_torch.bodymodel import core
+    from multihmr_tpu_torch.bodymodel.anny import synthetic_anny_model
+    from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
+
+    arrays = synthetic_anny_model() if family == "anny" else synthetic_body_model(num_joints=55)
+    parents = tuple(int(p) for p in arrays["parents"])
+    J = len(parents)
+
+    def inputs(seed, n):
+        g = torch.Generator().manual_seed(seed)
+        R = torch.linalg.qr(torch.randn(n, J, 3, 3, generator=g)).Q
+        joints = torch.randn(n, J, 3, generator=g).to(dev)
+        if family == "smplx":
+            assert R.stride()[-2:] == (1, 3)
+            return R.to(dev), joints
+        H = torch.zeros(n, J, 4, 4)
+        H[..., :3, :3] = R
+        H[..., 3, 3] = 1.0
+        return H.to(dev)[..., :3, :3], joints
+
+    sets = [inputs(0, n), inputs(1, n), inputs(2, n // 2)]
+    with torch.no_grad():
+        want = [core._forward_kinematics(R, t, parents) for R, t in sets]
+    core._GRAPHS.clear()
+    core.reset_fk()
+    with torch.inference_mode():
+        got = [core._forward_kinematics(R, t, parents) for R, t in sets[:2]]
+        assert core.FK_GRAPH == {"captures": 1, "replays": 2}
+        got.append(core._forward_kinematics(*sets[2], parents))
+    torch.cuda.synchronize()
+    assert core.FK_GRAPH == {"captures": 2, "replays": 3}
+    assert core.FK == {"calls": 3, "steps": 3 * J}
+    assert not torch.equal(want[0][0], want[1][0])
+    for i, (g_out, w_out) in enumerate(zip(got, want)):
+        for a, b in zip(g_out, w_out):
+            assert a.shape == b.shape and torch.equal(a, b), (i, _max_err(a, b))
 
 
 def test_folder_pipeline_on_card(dev, tmp_path):

@@ -7,7 +7,8 @@ order the pipelined loop runs them, flat but for ``fk`` inside ``body``, none
 a user annotation, each holding the operators its stage runs; the outputs
 are bitwise those of an unprofiled run, and ``torch.export`` records no
 profiler node. The seven readers run
-on a hand-built trace whose readings are worked out below.
+on a hand-built trace whose readings are worked out below, and the share of
+``fk`` spans that replay a CUDA graph on hand-built host events.
 """
 
 from types import SimpleNamespace
@@ -188,3 +189,48 @@ def test_readers_in_benchmark():
         assert (m["unit"], m["better"], m["source"], m["moves"], m["workloads"]) == (
             "ms", "lower", "device_trace", "images_per_s",
             ["folder_896L_b8", "folder_672L_anny_b8"])
+
+
+# -- the share of forward-kinematics spans that replay a CUDA graph -----------
+#
+# Four ``multihmr.fk`` spans, [0,100] [200,300] [400,500] [600,700] (us); a
+# ``cudaGraphLaunch`` inside the first and the third, one at 150 between
+# spans, a ``cudaGraphLaunch_ptsz`` inside the fourth, and a kernel launch
+# inside the second: three of four spans replay a graph.
+
+def _fk_trace(launches, spans=4, with_device=True):
+    host = [_ev("multihmr.fk", 200 * i, 200 * i + 100) for i in range(spans)]
+    host += [_ev(name, t, t + 5) for name, t in launches]
+    host.append(_ev("multihmr.body", 0, 700))
+    device = [_ev("gemm", 10, 90, True)] if with_device else []
+    return Trace(host + device, window_s=700e-6)
+
+
+FK_GRAPH_CASES = {
+    "mixed": ([("cudaGraphLaunch", 50), ("cudaGraphLaunch", 150), ("cudaLaunchKernel", 250),
+               ("cudaGraphLaunch", 450), ("cudaGraphLaunch_ptsz", 650)], 75.0),
+    "every call": ([("cudaGraphLaunch", 200 * i + 60) for i in range(4)], 100.0),
+    "one by one": ([("cudaLaunchKernel", 200 * i + 60) for i in range(4)], 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FK_GRAPH_CASES))
+def test_fk_graph_reader(case):
+    launches, pct = FK_GRAPH_CASES[case]
+    assert harness.read_metric("fk_graph_pct.infer", {"trace": _fk_trace(launches)}) == pct
+
+
+@pytest.mark.parametrize("trace", ["no fk span", "no device work", "none"])
+def test_fk_graph_reader_none(trace):
+    launches = FK_GRAPH_CASES["every call"][0]
+    tr = {"no fk span": _fk_trace(launches, spans=0),
+          "no device work": _fk_trace(launches, with_device=False), "none": None}[trace]
+    assert harness.read_metric("fk_graph_pct.infer", {"trace": tr}) is None
+
+
+def test_fk_graph_reader_in_benchmark():
+    m = next(m for m in harness.load_json(harness.ROOT.parent / "BENCHMARK.json")["per_layer"]
+             if m["name"] == "fk_graph_pct.infer")
+    assert (m["unit"], m["better"], m["source"], m["layer"], m["moves"], m["workloads"]) == (
+        "%", "higher", "device_trace", "body model", "images_per_s",
+        ["folder_896L_b8", "folder_672L_anny_b8"])
