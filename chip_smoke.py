@@ -235,7 +235,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import struct
 import subprocess
 import sys
 import time
@@ -243,6 +242,11 @@ import traceback
 
 import numpy as np
 import torch
+
+from multihmr_tpu_torch.tools.kernel_timing import (MUTANTS, bound_ms, log, qkv_views,
+                                                    std_qkv_views, time_bwd, time_forward,
+                                                    time_k5)
+from multihmr_tpu_torch.utils.profiling import cuda_ms, device_line
 
 # flash forward (K1, K5) against its plain version, computed in fp32 from the
 # same inputs and rounded to the kernel's dtype. fp32 out: 1e-5 abs (sums in
@@ -285,44 +289,6 @@ STREAM_RATIO = 1.1
 # of the stream, so a check of the outputs would not see the blocks (nor
 # their kernels); at 0.5 each block moves the stream by its own size
 LAYERSCALE = 0.5
-PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-
-
-def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, reps: int = 5, warmup: int = 3, ahead_ms: float = 0.0) -> float:
-    """``utils/profiling.py::cuda_ms``: ms per ``fn()`` by CUDA events around
-    ``iters`` back-to-back calls, the device first spinning ``ahead_ms``."""
-    from multihmr_tpu_torch.utils.profiling import cuda_ms as timed
-
-    return timed(fn, iters, reps, warmup, ahead_ms)
-
-
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time for the work on the card: the larger of its operations over
-    the bf16 tensor-core peak and its bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def qkv_views(n, dtype, heads=16, seed=0, kv_len=None, batch=1):
-    """q, k, v as the ViT makes them: strided [B, H, 64, N] views of one
-    [B, 3*H*64, N] projection output; junk past kv_len."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((batch, 3 * heads * 64, n), device="cuda", generator=g).to(dtype)
-    if kv_len is not None:
-        qkv[..., kv_len:] = 30.0
-    return qkv.reshape(batch, 3, heads, 64, n).unbind(1)
 
 
 def case_name(n, dt, kv_len, batch):
@@ -505,66 +471,6 @@ def run_896(build_model, demo, cast_backbone_bf16, cuda_lib, attention, norm, ou
             raise AssertionError("896_L main path check failed")
     launches = dict(cuda_lib.LAUNCHES)  # read just after the inference path's run
     return model, launches
-
-
-def time_forward(model, attention, norm, card):
-    x = torch.randn((1, 896, 896, 3), device="cuda", generator=torch.Generator("cuda").manual_seed(3))
-    K = torch.tensor([[[776.0, 0, 448], [0, 776.0, 448], [0, 0, 1]]], device="cuda")
-    with torch.inference_mode():
-        fwd_ms = cuda_ms(lambda: model.forward(x, K), iters=5)
-    log(7, f"896_L bf16 forward, batch 1: {fwd_ms:.3f} ms [{card}]")
-    F = torch.nn.functional
-    N = 4097  # the true tokens: the bound and SDPA's work
-    q, k, v = qkv_views(4104, torch.bfloat16, kv_len=N)
-    B, H, Dh, _ = q.shape
-    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(q, k, v, kv_len=N), iters=20)
-    k1_plain = cuda_ms(lambda: attention.mha_reference_t(q, k, v, kv_len=N), iters=20)
-    qs, ks, vs = (t[..., :N].transpose(-1, -2).contiguous() for t in (q, k, v))  # [B, H, N, Dh]
-    k1_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), iters=20)
-    k1_bound = bound_ms(4 * N * N * Dh * B * H, (4 * B * H * Dh * N) * 2 + B * H * N * 4)
-    log(7, f"K1 [1,16,64,4104] kv_len 4097 bf16: kernel {k1:.4f} ms, plain {k1_plain:.4f} ms, "
-           f"SDPA forward [1,16,4097,64] {k1_lib:.4f} ms, bound (4,097 tokens) "
-           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) [{card}]")
-
-    k2 = time_k2(norm, card)
-    return {"fwd_ms": fwd_ms, "k1": (k1, k1_plain, k1_lib, *k1_bound), "k2": k2}
-
-
-def rotation(fn, inputs):
-    """A call of ``fn`` on the next of ``inputs`` in turn."""
-    turn = [0]
-
-    def call():
-        fn(inputs[turn[0] % len(inputs)])
-        turn[0] += 1
-    return call
-
-
-def time_k2(norm, card):
-    """K2, its plain version and ``F.layer_norm`` at [1, 1024, 4104] bf16:
-    back to back on one tensor (input and output stay in the 50 MB L2) and
-    over a rotation of 8 inputs (read from device memory), the host queued
-    ahead of the device. Returns (K2, plain, F.layer_norm, bound, bound_by),
-    the device-memory readings."""
-    F = torch.nn.functional
-    N = 4104  # the pre-padded 896_L stream
-    xs = [torch.randn((1, 1024, N), device="cuda").to(torch.bfloat16) for _ in range(8)]
-    xts = [x.transpose(1, 2).contiguous() for x in xs]  # [1, 4104, 1024]
-    s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
-    sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
-    kern = lambda x: norm.layernorm_cm(x, s, b)  # noqa: E731
-    lib = lambda x: F.layer_norm(x, (1024,), sb, bb, 1e-6)  # noqa: E731
-    one = {name: cuda_ms(lambda: fn(x), iters=48, ahead_ms=5)
-           for name, fn, x in (("K2", kern, xs[0]), ("F.layer_norm", lib, xts[0]))}
-    rot = {name: cuda_ms(rotation(fn, x), iters=48, ahead_ms=5)
-           for name, fn, x in (("K2", kern, xs), ("F.layer_norm", lib, xts))}
-    plain = cuda_ms(lambda: norm.layernorm_cm_reference(xs[0], s, b), iters=20)
-    bound = bound_ms(8 * 1024 * N, 2 * 1024 * N * 2 + 2 * 1024 * 4)
-    log(7, f"K2 [1,1024,4104] bf16->bf16: kernel {rot['K2']:.4f} ms over 8 rotating inputs, "
-           f"{one['K2']:.4f} ms on one tensor (L2); F.layer_norm [1,4104,1024] "
-           f"{rot['F.layer_norm']:.4f} / {one['F.layer_norm']:.4f} ms; plain {plain:.4f} ms; "
-           f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
-    return (rot["K2"], plain, rot["F.layer_norm"], *bound)
 
 
 def _grad_rel(a, b):
@@ -804,60 +710,6 @@ def memory_fit(peaks, cfg):
             + f"; _FIXED_BYTES {max(f for _, f in fit.values()) / 1e9:.3f} GB")
 
 
-def time_bwd(attention, card):
-    """Times at [1, 16, 64, 4104] bf16 with kv_len 4097 (the pre-padded
-    896_L stream): K3, K4a, K4b and the plain backward; the SDPA backward
-    (one forward graph, backward with retain_graph) on the 4,097 true
-    tokens."""
-    F = torch.nn.functional
-    N = 4097  # the true tokens: the bounds and SDPA's work
-    q, k, v = qkv_views(4104, torch.bfloat16, seed=11, kv_len=N)
-    B, H, Dh, _ = q.shape
-    o, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=N)
-    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
-    dd = (do.float() * o.float()).sum(2)
-    outs = [torch.empty_like(o) for _ in range(3)]
-    scale = Dh ** -0.5
-
-    def kern(name):
-        return lambda: attention._flash_bwd_t_cuda(name, q, k, v, do, lse, dd, scale, N, *outs)
-
-    t = {name: cuda_ms(kern(name), iters=10) for name in
-         (attention.KERNEL_BWD, attention.KERNEL_BWD_DQ, attention.KERNEL_BWD_DKV)}
-    whole = cuda_ms(lambda: attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=N), iters=10)
-    plain = cuda_ms(lambda: attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=N),
-                    iters=3)
-    qs, ks, vs = (x[..., :N].transpose(-1, -2).contiguous().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs)
-    g = do[..., :N].transpose(-1, -2).contiguous()
-    lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True), iters=10)
-    nbytes = lambda n_tensors: n_tensors * B * H * Dh * N * 2 + B * H * N * 4  # noqa: E731
-    prod = 2 * N * N * Dh * B * H  # one N x N x 64 product
-    bounds = {attention.KERNEL_BWD: bound_ms(5 * prod, nbytes(8)),  # q k v o dO in, dq dk dv out
-              attention.KERNEL_BWD_DQ: bound_ms(3 * prod, nbytes(6)),  # s, dp, dq
-              attention.KERNEL_BWD_DKV: bound_ms(4 * prod, nbytes(7))}  # s, dp, dv, dk
-    pair = t[attention.KERNEL_BWD_DQ] + t[attention.KERNEL_BWD_DKV]
-    log(11, f"flash backward [1,16,64,4104] kv_len 4097 bf16 [{card}]: K3 "
-            f"{t[attention.KERNEL_BWD]:.4f} ms "
-            f"(whole fused backward with D and the dq cast {whole:.4f} ms), "
-            f"K4a {t[attention.KERNEL_BWD_DQ]:.4f} ms + K4b {t[attention.KERNEL_BWD_DKV]:.4f} ms "
-            f"= {pair:.4f} ms (the two-pass backward, {pair / lib:.2f}x SDPA's, "
-            f"{pair / t[attention.KERNEL_BWD]:.2f}x K3's), plain {plain:.4f} ms, SDPA backward "
-            f"[1,16,4097,64] {lib:.4f} ms; bounds (4,097 tokens) K3/K4a/K4b "
-            + "/".join(f"{b[0]:.4f}" for b in bounds.values()) + " ms (operations)")
-    # SDPA's backward computes dq, dk and dv: K3's function, and K4a's and
-    # K4b's together
-    return {name: (t[name], plain, lib, *bounds[name]) for name in t}
-
-
-def std_qkv_views(n, dtype, heads=16, seed=0, batch=1):
-    """q, k, v as the standard-stream ViT makes them: [B, H, N, 64] views of
-    one [B, N, 3*H*64] projection output."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((batch, n, 3 * heads * 64), device="cuda", generator=g).to(dtype)
-    return qkv.reshape(batch, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
-
-
 # K5's output layouts: the merged [B, N, H, 64] buffer the ViT reads, and the
 # JAX kernel's [B, H, 64, N]
 K5_LAYOUTS = {
@@ -895,57 +747,6 @@ def check_k5(attention):
     return worst
 
 
-# deliberately broken copies of the bf16 flash kernels and of K2, one
-# textual change each to the kernel's source: the limit that holds the sound
-# kernel to its plain version (phase 12's for K5, phase 3's for K1, phase 8's
-# for K3, phase 4's for K2) must fail every one. The earlier 2e-2 abs limit
-# passes K5's last, whose error is 1/64 of |out| (|out| < 0.3 on these inputs)
-_K5_PV = "wgmma_m64n64k16<1>(o, pf[kk], wgmma_desc(sV + 16 * kk * 64, 1024, 1024), 1);"
-K5_MUTANTS = {
-    "P.V k-step 3 (keys 48-63) of every kv tile dropped": [(_K5_PV, "if (kk != 3) " + _K5_PV)],
-    "P.V k-step 3 (keys 48-63) of the first kv tile dropped": [
-        (_K5_PV, "if (tile != 0 || kk != 3) " + _K5_PV)],
-    "P.V k-step 3 reads the v rows of k-step 2": [
-        ("wgmma_desc(sV + 16 * kk * 64,", "wgmma_desc(sV + 16 * (kk == 3 ? 2 : kk) * 64,")],
-    "output normalised by a row sum 1/64 too large": [
-        ("inv[r] = 1.f / l;", "inv[r] = 1.f / (l * 1.015625f);")],
-}
-_K1_PV = "wgmma_m64n64k16<0>(o, pf[kk], wgmma_desc(sV + 16 * kk, 0, 1024), 1);"
-K1_MUTANTS = {
-    "P.V k-step 3 (keys 48-63) of every kv tile dropped": [(_K1_PV, "if (kk != 3) " + _K1_PV)],
-    "P.V k-step 3 (keys 48-63) of the first kv tile dropped": [
-        (_K1_PV, "if (j != 0 || kk != 3) " + _K1_PV)],
-}
-K2_MUTANTS = {
-    "channels 0-7 (warp 0's first load) left out of the variance sum": [
-        ("acc[t] = fmaf(d, d, acc[t]);", "acc[t] = warp == 0 && i == 0 ? acc[t] : fmaf(d, d, acc[t]);")],
-    "mean taken over D - 8 channels": [("mu[t] = acc[t] / D;", "mu[t] = acc[t] / (D - 8);")],
-}
-_K3_DQ = "wDQ[ch * kLdDQ + 16 * (warp % 4) + g + 8 * (i / 2)] = dqa[j][i] * scale;"
-_K4A_DQ = "wgmma_m64n64k16<0>(acc, af[kk], wgmma_desc(sK + 16 * kk, 0, 1024), 1);"
-K4A_MUTANTS = {
-    "dq product reads the v tile in place of k": [(_K4A_DQ, _K4A_DQ.replace("sK +", "sV +"))],
-    "no kv_len mask (p and the zeroed k/v of the last tile)": [
-        ("const bool tail = n0 + kKBlk > kv_len;", "const bool tail = false;")],
-}
-# K4b is K3's kernel without the dq partial (kDq = false): its mutants change
-# that instance alone
-_K4B_DS = "ds[nt][i] = p * (ds[nt][i] - tD[c]);"
-_K4B_DK = "sK[o] = BF16::store(dk_acc[d][i] * scale);"
-K4B_MUTANTS = {
-    "ds without the -D term": [
-        (_K4B_DS, "ds[nt][i] = kDq ? p * (ds[nt][i] - tD[c]) : p * ds[nt][i];")],
-    "dk not scaled": [(_K4B_DK, "sK[o] = BF16::store(kDq ? dk_acc[d][i] * scale : dk_acc[d][i]);")],
-}
-K3_MUTANTS = {
-    "dq channels 24-31 and 56-63 dropped from the partial of every query tile": [
-        (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;", "= j == 3 ? 0.f : dqa[j][i] * scale;"))],
-    "dq channels 24-31 and 56-63 dropped from the partial of the first query tile": [
-        (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;",
-                                "= t == 0 && j == 3 ? 0.f : dqa[j][i] * scale;"))],
-}
-
-
 def check_mutants(attention, norm, cuda_lib):
     """Build the mutants of K5, K1, K3, K4a, K4b and K2
     (cuda_lib.build_variants: one nvcc each, all started together), run each
@@ -961,12 +762,8 @@ def check_mutants(attention, norm, cuda_lib):
     launches = {k: cuda_lib.LAUNCHES[k] for k in counted}
     readings = {"K5": {}, "K1": {}, "K3": {}, "K4a": {}, "K4b": {}, "K2": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        builds = {"K5": cuda_lib.build_variants("flash_fwd_std.cu", K5_MUTANTS, tmp),
-                  "K1": cuda_lib.build_variants("flash_fwd.cu", K1_MUTANTS, tmp),
-                  "K3": cuda_lib.build_variants("flash_bwd.cu", K3_MUTANTS, tmp),
-                  "K4a": cuda_lib.build_variants("flash_bwd.cu", K4A_MUTANTS, tmp),
-                  "K4b": cuda_lib.build_variants("flash_bwd.cu", K4B_MUTANTS, tmp),
-                  "K2": cuda_lib.build_variants("layernorm_cm.cu", K2_MUTANTS, tmp)}
+        builds = {kern: cuda_lib.build_variants(source, table, tmp)
+                  for kern, (source, table) in MUTANTS.items()}
         q, k, v = std_qkv_views(4097, torch.bfloat16, seed=4097)
         ref_out, ref_lse = attention.flash_fwd_reference(q, k, v)
         for name, build in builds["K5"].items():
@@ -1027,35 +824,6 @@ def check_mutants(attention, norm, cuda_lib):
     for kern in counted:  # the mutants' launches do not count
         cuda_lib.LAUNCHES[kern] = launches[kern]
     return readings
-
-
-def time_k5(attention, cuda_lib, card):
-    """K5, its plain version, the SDPA forward (on the same views) and K1
-    (on the channels-major views) at the 896_L shape, bf16."""
-    F = torch.nn.functional
-    q, k, v = std_qkv_views(4097, torch.bfloat16)
-    B, H, N, Dh = q.shape
-    k5 = cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20)
-    plain = cuda_ms(lambda: attention.flash_fwd_reference(q, k, v), iters=20)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
-    qt, kt, vt = qkv_views(4104, torch.bfloat16, kv_len=N)
-    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(qt, kt, vt, kv_len=N), iters=20)
-    bound = bound_ms(4 * N * N * Dh * B * H, 4 * B * H * N * Dh * 2 + B * H * N * 4)
-    encode_us = cuda_lib.library().mhmr_flash_fwd_std_encode_ns(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, N, *q.stride()[:3], 1000) / 1e3
-    n_calls = 200
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_calls):
-        attention._flash_fwd_std(q, k, v)
-    host_us = (time.perf_counter() - t0) / n_calls * 1e6
-    torch.cuda.synchronize()
-    log(12, f"K5 [1,16,4097,64] bf16 (strided views of the projection): kernel {k5:.4f} ms, "
-            f"plain {plain:.4f} ms, SDPA forward on the same views {lib:.4f} ms, "
-            f"K1 [1,16,64,4104] kv_len 4097 {k1:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
-            f"host: {encode_us:.2f} us per call encoding the three tensor maps, "
-            f"{host_us:.2f} us per call of the whole wrapper [{card}]")
-    return (k5, plain, lib, *bound)
 
 
 def check_streams_896(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attention,
@@ -1371,99 +1139,6 @@ def write_reference_ckpt(path, name, seed=0):
     args = argparse.Namespace(backbone=cfg.backbone, img_size=[cfg.img_size])
     torch.save({"model_state_dict": reference_state_dict(cfg, seed), "args": args}, path)
     return os.path.getsize(path), time.perf_counter() - t0
-
-
-# ---- the JAX package's own checkpoints (flax msgpack), for phase 20 (c) ----
-
-
-def _mp_len(n, fix, fix_max, codes):
-    """A msgpack length header: the fix form below ``fix_max``, else the
-    8/16/32-bit code (None where msgpack has no 8-bit form)."""
-    if n < fix_max:
-        return bytes([fix | n])
-    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
-        if code is not None and n <= top:
-            return bytes([code]) + struct.pack(fmt, n)
-    raise ValueError(f"msgpack: length {n} too large")
-
-
-def _mp_int(v):
-    if -0x20 <= v < 0x80:
-        return struct.pack(">b" if v < 0 else ">B", v)
-    for code, fmt, lo, hi in ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
-                              (0xCE, ">I", 0, 0xFFFFFFFF), (0xCF, ">Q", 0, 2**64 - 1),
-                              (0xD0, ">b", -0x80, -1), (0xD1, ">h", -0x8000, -1),
-                              (0xD2, ">i", -2**31, -1), (0xD3, ">q", -2**63, -1)):
-        if lo <= v <= hi:
-            return bytes([code]) + struct.pack(fmt, v)
-    raise ValueError(f"msgpack: int {v} out of range")
-
-
-def _mp_str(v):
-    b = v.encode()
-    return _mp_len(len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + b
-
-
-def _mp_ndarray(a, code):
-    """flax's ext: ``packb((shape, dtype name, C-order bytes))``."""
-    data = np.ascontiguousarray(a).tobytes()
-    inner = (_mp_len(3, 0x90, 16, (None, 0xDC, 0xDD)) + _mp_len(a.ndim, 0x90, 16, (None, 0xDC, 0xDD))
-             + b"".join(_mp_int(int(d)) for d in a.shape) + _mp_str(a.dtype.name)
-             + _mp_len(len(data), 0, 0, (0xC4, 0xC5, 0xC6)))
-    n = len(inner) + len(data)
-    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    head = bytes([fixext[n]]) if n in fixext else _mp_len(n, 0, 0, (0xC7, 0xC8, 0xC9))
-    return [head + bytes([code]) + inner, data]
-
-
-def flax_msgpack_parts(obj):
-    """The bytes of ``flax.serialization.to_bytes(obj)``, in parts (the
-    arrays' data as separate parts), for a tree of dicts, lists, tuples,
-    numpy arrays and scalars, str, bytes, int, float, bool and None: a
-    writer of the JAX package's checkpoint layout without flax or msgpack.
-    Lists and tuples become maps keyed "0", "1", ... as flax's state dicts
-    make them; a leaf over flax's 2**30-byte chunk size raises."""
-    if isinstance(obj, (list, tuple)):
-        obj = {str(i): v for i, v in enumerate(obj)}
-    if isinstance(obj, dict):
-        parts = [_mp_len(len(obj), 0x80, 16, (None, 0xDE, 0xDF))]
-        for k, v in obj.items():
-            parts.append(_mp_str(str(k)))
-            parts += flax_msgpack_parts(v)
-        return parts
-    if isinstance(obj, np.ndarray):
-        if obj.nbytes > 2**30:
-            raise ValueError("a leaf over flax's chunk size: not written here")
-        return _mp_ndarray(obj, 1)
-    if isinstance(obj, np.generic):
-        return _mp_ndarray(np.asarray(obj), 3)
-    if obj is None:
-        return [b"\xc0"]
-    if isinstance(obj, bool):
-        return [b"\xc3" if obj else b"\xc2"]
-    if isinstance(obj, int):
-        return [_mp_int(obj)]
-    if isinstance(obj, float):
-        return [b"\xcb" + struct.pack(">d", obj)]
-    if isinstance(obj, str):
-        return [_mp_str(obj)]
-    if isinstance(obj, bytes):
-        return [_mp_len(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)), obj]
-    raise TypeError(f"flax msgpack: cannot write {type(obj).__name__}")
-
-
-def write_flax_checkpoint(ckpt_dir, tree, epoch, cfg):
-    """What the JAX package's ``save_checkpoint`` writes: ``ckpt_{epoch:06d}
-    .msgpack`` (flax ``to_bytes`` of ``tree``) and its ``.json``; returns
-    the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"ckpt_{epoch:06d}.msgpack")
-    with open(path, "wb") as f:
-        for part in flax_msgpack_parts(tree):
-            f.write(part)
-    with open(os.path.join(ckpt_dir, f"ckpt_{epoch:06d}.json"), "w") as f:
-        json.dump({"epoch": epoch, "config": dataclasses.asdict(cfg)}, f)
-    return path
 
 
 def run_reference_ckpt(build_model, named_config, demo, cast_backbone_bf16, cuda_lib, attention,
@@ -3449,8 +3124,8 @@ def jax_checkpoints(named_config, cuda_lib, names, card, tmp, ref_paths):
         ckpt = torch.load(pt, map_location="cpu", weights_only=False)
         want = convert_reference_checkpoint(ckpt, cfg)  # the .pt route
         t0 = time.perf_counter()
-        path = write_flax_checkpoint(os.path.join(tmp, f"jax_{name}"), jax_tree_from_reference(
-            ckpt, cfg), 0, cfg)
+        path = flax_msgpack.write_flax_checkpoint(os.path.join(tmp, f"jax_{name}"),
+                                                  jax_tree_from_reference(ckpt, cfg), 0, cfg)
         t_write = time.perf_counter() - t0
         del ckpt
         t0 = time.perf_counter()
@@ -4446,7 +4121,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    card = nvidia_smi_line()
+    card = device_line("cuda")
     log(1, f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
            f"{torch.cuda.device_count()} device(s)")
 

@@ -1,6 +1,6 @@
-"""Read flax msgpack files (``flax.serialization.to_bytes``, which the JAX
-package's ``io/checkpoint.py::save_checkpoint`` writes) without flax and
-without the ``msgpack`` package.
+"""Read and write flax msgpack files (``flax.serialization.to_bytes``, which
+the JAX package's ``io/checkpoint.py::save_checkpoint`` writes) without flax
+and without the ``msgpack`` package.
 
 The decoder reads the subset of msgpack that ``msgpack_serialize`` writes:
 maps, arrays, str, bin, ints, floats, nil and bool, and two ext types:
@@ -17,10 +17,17 @@ bfloat16, so a bfloat16 array is read as ``uint16`` and viewed as a
 ``{"__msgpack_chunked_array__": True, "shape": ..., "chunks": ...}`` dicts
 (over ``2**30`` bytes) are joined back. Lists and tuples come back as flax
 wrote them: maps keyed ``"0"``, ``"1"``, ...
+
+The writer (:func:`dump_parts`, :func:`write_flax_checkpoint`) makes the
+bytes ``to_bytes`` makes for the same tree of numpy arrays (a leaf that
+flax would chunk raises), and the ``.json`` that ``save_checkpoint``
+writes beside them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import struct
 
@@ -156,3 +163,97 @@ def load(path: str) -> object:
         if f.readinto(buf) != size:
             raise ValueError(f"{path}: short read")
     return loads(buf)
+
+
+# ---- the writer ----
+
+
+def _mp_len(n, fix, fix_max, codes):
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    8/16/32-bit code (None where msgpack has no 8-bit form)."""
+    if n < fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _mp_int(v):
+    if -0x20 <= v < 0x80:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    for code, fmt, lo, hi in ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+                              (0xCE, ">I", 0, 0xFFFFFFFF), (0xCF, ">Q", 0, 2**64 - 1),
+                              (0xD0, ">b", -0x80, -1), (0xD1, ">h", -0x8000, -1),
+                              (0xD2, ">i", -2**31, -1), (0xD3, ">q", -2**63, -1)):
+        if lo <= v <= hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"msgpack: int {v} out of range")
+
+
+def _mp_str(v):
+    b = v.encode()
+    return _mp_len(len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + b
+
+
+def _mp_ndarray(a, code):
+    """flax's ext: ``packb((shape, dtype name, C-order bytes))``."""
+    data = np.ascontiguousarray(a).tobytes()
+    inner = (_mp_len(3, 0x90, 16, (None, 0xDC, 0xDD)) + _mp_len(a.ndim, 0x90, 16, (None, 0xDC, 0xDD))
+             + b"".join(_mp_int(int(d)) for d in a.shape) + _mp_str(a.dtype.name)
+             + _mp_len(len(data), 0, 0, (0xC4, 0xC5, 0xC6)))
+    n = len(inner) + len(data)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixext[n]]) if n in fixext else _mp_len(n, 0, 0, (0xC7, 0xC8, 0xC9))
+    return [head + bytes([code]) + inner, data]
+
+
+def dump_parts(obj):
+    """The bytes of ``flax.serialization.to_bytes(obj)``, in parts (the
+    arrays' data as separate parts), for a tree of dicts, lists, tuples,
+    numpy arrays and scalars, str, bytes, int, float, bool and None: the
+    inverse of :func:`loads`, a writer of the JAX package's checkpoint
+    layout without flax or msgpack.
+    Lists and tuples become maps keyed "0", "1", ... as flax's state dicts
+    make them; a leaf over flax's 2**30-byte chunk size raises."""
+    if isinstance(obj, (list, tuple)):
+        obj = {str(i): v for i, v in enumerate(obj)}
+    if isinstance(obj, dict):
+        parts = [_mp_len(len(obj), 0x80, 16, (None, 0xDE, 0xDF))]
+        for k, v in obj.items():
+            parts.append(_mp_str(str(k)))
+            parts += dump_parts(v)
+        return parts
+    if isinstance(obj, np.ndarray):
+        if obj.nbytes > 2**30:
+            raise ValueError("a leaf over flax's chunk size: not written here")
+        return _mp_ndarray(obj, 1)
+    if isinstance(obj, np.generic):
+        return _mp_ndarray(np.asarray(obj), 3)
+    if obj is None:
+        return [b"\xc0"]
+    if isinstance(obj, bool):
+        return [b"\xc3" if obj else b"\xc2"]
+    if isinstance(obj, int):
+        return [_mp_int(obj)]
+    if isinstance(obj, float):
+        return [b"\xcb" + struct.pack(">d", obj)]
+    if isinstance(obj, str):
+        return [_mp_str(obj)]
+    if isinstance(obj, bytes):
+        return [_mp_len(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)), obj]
+    raise TypeError(f"flax msgpack: cannot write {type(obj).__name__}")
+
+
+def write_flax_checkpoint(ckpt_dir, tree, epoch, cfg):
+    """What the JAX package's ``save_checkpoint`` writes: ``ckpt_{epoch:06d}
+    .msgpack`` (flax ``to_bytes`` of ``tree``) and its ``.json``; returns
+    the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"ckpt_{epoch:06d}.msgpack")
+    with open(path, "wb") as f:
+        for part in dump_parts(tree):
+            f.write(part)
+    with open(os.path.join(ckpt_dir, f"ckpt_{epoch:06d}.json"), "w") as f:
+        json.dump({"epoch": epoch, "config": dataclasses.asdict(cfg)}, f)
+    return path

@@ -8,13 +8,15 @@
     python -m multihmr_tpu_torch.tools.kernel_timing rounding [--seeds 10]
 
 ``ab``: one turn per TREE, in the order given (old new new old for an A/B):
-a fresh process, run from that tree's root, builds that tree's kernels and
-runs its own ``chip_smoke.py`` phases 7 and 11 (the 896_L bf16 forward at
-batch 1 and the forward kernels' times; the backward kernels' times), then
-times that tree's K2, K5, K3, K4a and K4b with this file's method
-(:func:`kernel_ms`) on the same inputs in every tree. A TREE is a checkout holding
-``chip_smoke.py`` and the port, e.g. the parent commit unpacked with
-``git archive``.
+a fresh ``python -m`` of that tree's own copy of this module, run from the
+tree's root, builds that tree's kernels and runs its :func:`time_forward`
+and :func:`time_bwd` (``chip_smoke.py`` phases 7 and 11: the 896_L bf16
+forward at batch 1 and the forward kernels' times; the backward kernels'
+times), then its :func:`kernel_ms` (K2, K5, K3, K4a and K4b on seeded
+inputs, the host queued ahead). A TREE is a checkout of the port from the
+change that moved these timings out of ``chip_smoke.py`` on (an older
+tree's turn times through its own ``chip_smoke.py``), e.g. the parent
+commit unpacked with ``git archive``.
 
 ``variants``: K1, K3, K4a, K4b, K5 and K2 at the 896_L shapes
 ([1, 16, 64, 4104] with kv_len 4097 for K1, K3, K4a and K4b,
@@ -62,6 +64,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import torch
 
@@ -152,34 +155,264 @@ VARIANTS = {
 }
 
 
+# deliberately broken copies of the bf16 flash kernels and of K2, which
+# chip_smoke.py phase 12 builds, one textual change each to the kernel's
+# source (the same form as VARIANTS): the limit that holds the sound
+# kernel to its plain version (phase 12's for K5, phase 3's for K1, phase 8's
+# for K3, phase 4's for K2) must fail every one. The earlier 2e-2 abs limit
+# passes K5's last, whose error is 1/64 of |out| (|out| < 0.3 on these inputs)
+_K5_PV = "wgmma_m64n64k16<1>(o, pf[kk], wgmma_desc(sV + 16 * kk * 64, 1024, 1024), 1);"
+K5_MUTANTS = {
+    "P.V k-step 3 (keys 48-63) of every kv tile dropped": [(_K5_PV, "if (kk != 3) " + _K5_PV)],
+    "P.V k-step 3 (keys 48-63) of the first kv tile dropped": [
+        (_K5_PV, "if (tile != 0 || kk != 3) " + _K5_PV)],
+    "P.V k-step 3 reads the v rows of k-step 2": [
+        ("wgmma_desc(sV + 16 * kk * 64,", "wgmma_desc(sV + 16 * (kk == 3 ? 2 : kk) * 64,")],
+    "output normalised by a row sum 1/64 too large": [
+        ("inv[r] = 1.f / l;", "inv[r] = 1.f / (l * 1.015625f);")],
+}
+_K1_PV = "wgmma_m64n64k16<0>(o, pf[kk], wgmma_desc(sV + 16 * kk, 0, 1024), 1);"
+K1_MUTANTS = {
+    "P.V k-step 3 (keys 48-63) of every kv tile dropped": [(_K1_PV, "if (kk != 3) " + _K1_PV)],
+    "P.V k-step 3 (keys 48-63) of the first kv tile dropped": [
+        (_K1_PV, "if (j != 0 || kk != 3) " + _K1_PV)],
+}
+K2_MUTANTS = {
+    "channels 0-7 (warp 0's first load) left out of the variance sum": [
+        ("acc[t] = fmaf(d, d, acc[t]);", "acc[t] = warp == 0 && i == 0 ? acc[t] : fmaf(d, d, acc[t]);")],
+    "mean taken over D - 8 channels": [("mu[t] = acc[t] / D;", "mu[t] = acc[t] / (D - 8);")],
+}
+_K3_DQ = "wDQ[ch * kLdDQ + 16 * (warp % 4) + g + 8 * (i / 2)] = dqa[j][i] * scale;"
+_K4A_DQ = "wgmma_m64n64k16<0>(acc, af[kk], wgmma_desc(sK + 16 * kk, 0, 1024), 1);"
+K4A_MUTANTS = {
+    "dq product reads the v tile in place of k": [(_K4A_DQ, _K4A_DQ.replace("sK +", "sV +"))],
+    "no kv_len mask (p and the zeroed k/v of the last tile)": [
+        ("const bool tail = n0 + kKBlk > kv_len;", "const bool tail = false;")],
+}
+# K4b is K3's kernel without the dq partial (kDq = false): its mutants change
+# that instance alone
+_K4B_DS = "ds[nt][i] = p * (ds[nt][i] - tD[c]);"
+_K4B_DK = "sK[o] = BF16::store(dk_acc[d][i] * scale);"
+K4B_MUTANTS = {
+    "ds without the -D term": [
+        (_K4B_DS, "ds[nt][i] = kDq ? p * (ds[nt][i] - tD[c]) : p * ds[nt][i];")],
+    "dk not scaled": [(_K4B_DK, "sK[o] = BF16::store(kDq ? dk_acc[d][i] * scale : dk_acc[d][i]);")],
+}
+K3_MUTANTS = {
+    "dq channels 24-31 and 56-63 dropped from the partial of every query tile": [
+        (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;", "= j == 3 ? 0.f : dqa[j][i] * scale;"))],
+    "dq channels 24-31 and 56-63 dropped from the partial of the first query tile": [
+        (_K3_DQ, _K3_DQ.replace("= dqa[j][i] * scale;",
+                                "= t == 0 && j == 3 ? 0.f : dqa[j][i] * scale;"))],
+}
+# kernel -> (source, its mutants), in the order phase 12 checks them
+MUTANTS = {"K5": ("flash_fwd_std.cu", K5_MUTANTS), "K1": ("flash_fwd.cu", K1_MUTANTS),
+           "K3": ("flash_bwd.cu", K3_MUTANTS), "K4a": ("flash_bwd.cu", K4A_MUTANTS),
+           "K4b": ("flash_bwd.cu", K4B_MUTANTS), "K2": ("layernorm_cm.cu", K2_MUTANTS)}
+
+
+# ---- card times of the kernels and of the 896_L forward: chip_smoke.py phases 7,
+# 11 and 12, and each turn of ``ab`` ----
+
+
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time for the work on the card: the larger of its operations over
+    the bf16 tensor-core peak and its bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def qkv_views(n, dtype, heads=16, seed=0, kv_len=None, batch=1):
+    """q, k, v as the ViT makes them: strided [B, H, 64, N] views of one
+    [B, 3*H*64, N] projection output; junk past kv_len."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((batch, 3 * heads * 64, n), device="cuda", generator=g).to(dtype)
+    if kv_len is not None:
+        qkv[..., kv_len:] = 30.0
+    return qkv.reshape(batch, 3, heads, 64, n).unbind(1)
+
+
+def time_forward(model, attention, norm, card):
+    """Phase 7: ``model``'s forward at batch 1 (896_L), then K1 and K2 against
+    their plain versions, the library calls and their bounds."""
+    x = torch.randn((1, 896, 896, 3), device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    K = torch.tensor([[[776.0, 0, 448], [0, 776.0, 448], [0, 0, 1]]], device="cuda")
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model.forward(x, K), iters=5)
+    log(7, f"896_L bf16 forward, batch 1: {fwd_ms:.3f} ms [{card}]")
+    F = torch.nn.functional
+    N = 4097  # the true tokens: the bound and SDPA's work
+    q, k, v = qkv_views(4104, torch.bfloat16, kv_len=N)
+    B, H, Dh, _ = q.shape
+    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(q, k, v, kv_len=N), iters=20)
+    k1_plain = cuda_ms(lambda: attention.mha_reference_t(q, k, v, kv_len=N), iters=20)
+    qs, ks, vs = (t[..., :N].transpose(-1, -2).contiguous() for t in (q, k, v))  # [B, H, N, Dh]
+    k1_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), iters=20)
+    k1_bound = bound_ms(4 * N * N * Dh * B * H, (4 * B * H * Dh * N) * 2 + B * H * N * 4)
+    log(7, f"K1 [1,16,64,4104] kv_len 4097 bf16: kernel {k1:.4f} ms, plain {k1_plain:.4f} ms, "
+           f"SDPA forward [1,16,4097,64] {k1_lib:.4f} ms, bound (4,097 tokens) "
+           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) [{card}]")
+
+    k2 = time_k2(norm, card)
+    return {"fwd_ms": fwd_ms, "k1": (k1, k1_plain, k1_lib, *k1_bound), "k2": k2}
+
+
+def rotation(fn, inputs):
+    """A call of ``fn`` on the next of ``inputs`` in turn."""
+    turn = [0]
+
+    def call():
+        fn(inputs[turn[0] % len(inputs)])
+        turn[0] += 1
+    return call
+
+
+def time_k2(norm, card):
+    """K2, its plain version and ``F.layer_norm`` at [1, 1024, 4104] bf16:
+    back to back on one tensor (input and output stay in the 50 MB L2) and
+    over a rotation of 8 inputs (read from device memory), the host queued
+    ahead of the device. Returns (K2, plain, F.layer_norm, bound, bound_by),
+    the device-memory readings."""
+    F = torch.nn.functional
+    N = 4104  # the pre-padded 896_L stream
+    xs = [torch.randn((1, 1024, N), device="cuda").to(torch.bfloat16) for _ in range(8)]
+    xts = [x.transpose(1, 2).contiguous() for x in xs]  # [1, 4104, 1024]
+    s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
+    sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+    kern = lambda x: norm.layernorm_cm(x, s, b)  # noqa: E731
+    lib = lambda x: F.layer_norm(x, (1024,), sb, bb, 1e-6)  # noqa: E731
+    one = {name: cuda_ms(lambda: fn(x), iters=48, ahead_ms=5)
+           for name, fn, x in (("K2", kern, xs[0]), ("F.layer_norm", lib, xts[0]))}
+    rot = {name: cuda_ms(rotation(fn, x), iters=48, ahead_ms=5)
+           for name, fn, x in (("K2", kern, xs), ("F.layer_norm", lib, xts))}
+    plain = cuda_ms(lambda: norm.layernorm_cm_reference(xs[0], s, b), iters=20)
+    bound = bound_ms(8 * 1024 * N, 2 * 1024 * N * 2 + 2 * 1024 * 4)
+    log(7, f"K2 [1,1024,4104] bf16->bf16: kernel {rot['K2']:.4f} ms over 8 rotating inputs, "
+           f"{one['K2']:.4f} ms on one tensor (L2); F.layer_norm [1,4104,1024] "
+           f"{rot['F.layer_norm']:.4f} / {one['F.layer_norm']:.4f} ms; plain {plain:.4f} ms; "
+           f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    return (rot["K2"], plain, rot["F.layer_norm"], *bound)
+
+
+def time_bwd(attention, card):
+    """Times at [1, 16, 64, 4104] bf16 with kv_len 4097 (the pre-padded
+    896_L stream): K3, K4a, K4b and the plain backward; the SDPA backward
+    (one forward graph, backward with retain_graph) on the 4,097 true
+    tokens."""
+    F = torch.nn.functional
+    N = 4097  # the true tokens: the bounds and SDPA's work
+    q, k, v = qkv_views(4104, torch.bfloat16, seed=11, kv_len=N)
+    B, H, Dh, _ = q.shape
+    o, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=N)
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    dd = (do.float() * o.float()).sum(2)
+    outs = [torch.empty_like(o) for _ in range(3)]
+    scale = Dh ** -0.5
+
+    def kern(name):
+        return lambda: attention._flash_bwd_t_cuda(name, q, k, v, do, lse, dd, scale, N, *outs)
+
+    t = {name: cuda_ms(kern(name), iters=10) for name in
+         (attention.KERNEL_BWD, attention.KERNEL_BWD_DQ, attention.KERNEL_BWD_DKV)}
+    whole = cuda_ms(lambda: attention._flash_bwd_impl_t(q, k, v, o, lse, do, kv_len=N), iters=10)
+    plain = cuda_ms(lambda: attention.flash_bwd_reference_t(q, k, v, o, lse, do, kv_len=N),
+                    iters=3)
+    qs, ks, vs = (x[..., :N].transpose(-1, -2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs)
+    g = do[..., :N].transpose(-1, -2).contiguous()
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True), iters=10)
+    nbytes = lambda n_tensors: n_tensors * B * H * Dh * N * 2 + B * H * N * 4  # noqa: E731
+    prod = 2 * N * N * Dh * B * H  # one N x N x 64 product
+    bounds = {attention.KERNEL_BWD: bound_ms(5 * prod, nbytes(8)),  # q k v o dO in, dq dk dv out
+              attention.KERNEL_BWD_DQ: bound_ms(3 * prod, nbytes(6)),  # s, dp, dq
+              attention.KERNEL_BWD_DKV: bound_ms(4 * prod, nbytes(7))}  # s, dp, dv, dk
+    pair = t[attention.KERNEL_BWD_DQ] + t[attention.KERNEL_BWD_DKV]
+    log(11, f"flash backward [1,16,64,4104] kv_len 4097 bf16 [{card}]: K3 "
+            f"{t[attention.KERNEL_BWD]:.4f} ms "
+            f"(whole fused backward with D and the dq cast {whole:.4f} ms), "
+            f"K4a {t[attention.KERNEL_BWD_DQ]:.4f} ms + K4b {t[attention.KERNEL_BWD_DKV]:.4f} ms "
+            f"= {pair:.4f} ms (the two-pass backward, {pair / lib:.2f}x SDPA's, "
+            f"{pair / t[attention.KERNEL_BWD]:.2f}x K3's), plain {plain:.4f} ms, SDPA backward "
+            f"[1,16,4097,64] {lib:.4f} ms; bounds (4,097 tokens) K3/K4a/K4b "
+            + "/".join(f"{b[0]:.4f}" for b in bounds.values()) + " ms (operations)")
+    # SDPA's backward computes dq, dk and dv: K3's function, and K4a's and
+    # K4b's together
+    return {name: (t[name], plain, lib, *bounds[name]) for name in t}
+
+
+def std_qkv_views(n, dtype, heads=16, seed=0, batch=1):
+    """q, k, v as the standard-stream ViT makes them: [B, H, N, 64] views of
+    one [B, N, 3*H*64] projection output."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((batch, n, 3 * heads * 64), device="cuda", generator=g).to(dtype)
+    return qkv.reshape(batch, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def time_k5(attention, cuda_lib, card):
+    """K5, its plain version, the SDPA forward (on the same views) and K1
+    (on the channels-major views) at the 896_L shape, bf16."""
+    F = torch.nn.functional
+    q, k, v = std_qkv_views(4097, torch.bfloat16)
+    B, H, N, Dh = q.shape
+    k5 = cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20)
+    plain = cuda_ms(lambda: attention.flash_fwd_reference(q, k, v), iters=20)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=20)
+    qt, kt, vt = qkv_views(4104, torch.bfloat16, kv_len=N)
+    k1 = cuda_ms(lambda: attention._flash_fwd_impl_t(qt, kt, vt, kv_len=N), iters=20)
+    bound = bound_ms(4 * N * N * Dh * B * H, 4 * B * H * N * Dh * 2 + B * H * N * 4)
+    encode_us = cuda_lib.library().mhmr_flash_fwd_std_encode_ns(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, N, *q.stride()[:3], 1000) / 1e3
+    n_calls = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        attention._flash_fwd_std(q, k, v)
+    host_us = (time.perf_counter() - t0) / n_calls * 1e6
+    torch.cuda.synchronize()
+    log(12, f"K5 [1,16,4097,64] bf16 (strided views of the projection): kernel {k5:.4f} ms, "
+            f"plain {plain:.4f} ms, SDPA forward on the same views {lib:.4f} ms, "
+            f"K1 [1,16,64,4104] kv_len 4097 {k1:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"host: {encode_us:.2f} us per call encoding the three tensor maps, "
+            f"{host_us:.2f} us per call of the whole wrapper [{card}]")
+    return (k5, plain, lib, *bound)
+
+
 def ab(trees) -> int:
     for tree in trees:
         print(f"== turn: {os.path.abspath(tree)}", flush=True)
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "_turn"],
-                            cwd=tree).returncode
+        rc = subprocess.run([sys.executable, "-m", "multihmr_tpu_torch.tools.kernel_timing",
+                             "_turn"], cwd=tree).returncode
         if rc:
             return rc
     return 0
 
 
 def _turn() -> int:
-    sys.path.insert(0, os.getcwd())  # this tree's chip_smoke.py and port
-    import chip_smoke as cs
+    """One turn of ``ab``, in the tree it runs from (``python -m`` puts that
+    tree's port first on the path)."""
     from multihmr_tpu_torch.factory import build_model
     from multihmr_tpu_torch.ops import attention, cuda_lib, norm
     from multihmr_tpu_torch.utils.precision import cast_backbone_bf16
 
-    card = cs.nvidia_smi_line()
+    card = device_line("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _, secs = cuda_lib.build()
     print(f"kernels built in {secs:.1f} s", flush=True)
     model = build_model("multiHMR_896_L", device="cuda", seed=0)
     cast_backbone_bf16(model.net)
-    cs.time_forward(model, attention, norm, card)
+    time_forward(model, attention, norm, card)
     del model
     torch.cuda.empty_cache()
-    cs.time_bwd(attention, card)
+    time_bwd(attention, card)
     for line in kernel_ms(attention, norm):
         print(f"{line} [{card}]", flush=True)
     return 0

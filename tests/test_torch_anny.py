@@ -40,6 +40,7 @@ from tests.test_anny import tiny_anny
 from tests.test_anny_checkpoint import make_anny_state_dict
 from tests.test_torch_bodymodel import FIELDS
 from tests.test_torch_model import _rel_err
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 PHEN_TOL = 1e-6
 BODY_TOL = 1e-5

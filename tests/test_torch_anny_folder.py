@@ -35,6 +35,7 @@ from multihmr_tpu_torch.parallel import infer
 from multihmr_tpu_torch.utils import profiling
 from portbench import harness, inputs, weights_anny
 from portbench.reference.anny import AnnyReference
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 S, SEED = 112, 5
 CFG = AnnyConfig(img_size=S, xat_dim=64, xat_depth=2, xat_heads=4, xat_dim_head=16,

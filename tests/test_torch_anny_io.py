@@ -38,6 +38,7 @@ from multihmr_tpu_torch.models.multihmr_anny import MultiHMRAnny, MultiHMRAnnyNe
 from tests.test_anny_checkpoint import make_anny_state_dict
 from tests.test_torch_anny import TOLS, _assert_same_anny, _tiny_cfgs, tempered
 from tests.test_torch_checkpoint import _assert_equal
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 ANNY = "multiHMR_672_L_anny"
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_serve import pair  # noqa: F401  (module fixture)
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 @pytest.fixture

@@ -20,6 +20,7 @@ import torch
 from multihmr_tpu.ops import attention as jatt
 from multihmr_tpu_torch.ops import attention as tatt
 from multihmr_tpu_torch.ops import cuda_lib
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 TOL = 2e-5
 

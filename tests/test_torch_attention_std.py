@@ -26,6 +26,7 @@ import torch
 
 from multihmr_tpu.ops import attention as jatt
 from multihmr_tpu_torch.ops import attention as tatt
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 TOL = 2e-5
 GRAD_TOL = 2e-4

@@ -22,6 +22,7 @@ from multihmr_tpu_torch.bodymodel import constants as tconst
 from multihmr_tpu_torch.bodymodel.core import BodyModel, lbs_forward as tlbs
 from multihmr_tpu_torch.models.smplx_layer import SMPLXCameraLayer as TLayer
 from multihmr_tpu.bodymodel import constants as jconst
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 FIELDS = ("v_template", "shapedirs", "exprdirs", "posedirs", "J_regressor",
           "lbs_weights", "parents", "extra_joint_vertex_ids", "faces",

@@ -44,6 +44,7 @@ from multihmr_tpu_torch.io.convert import params_from_jax
 from multihmr_tpu_torch.ops import posenc as tposenc
 from tests.test_checkpoint import make_reference_state_dict
 from tests.test_torch_model import TOLS
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 NAMES = ("multiHMR_896_L", "multiHMR_672_L", "multiHMR_672_B", "multiHMR_672_S",
          "multiHMR_1288_L_bedlam", "multiHMR_1288_L_agora")

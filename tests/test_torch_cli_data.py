@@ -22,6 +22,7 @@ import multihmr_tpu.render as jrender
 import multihmr_tpu_torch.cli.data as tdata
 import multihmr_tpu_torch.render as trender
 from tests.test_cli_train import _write_bedlam, _write_ehf
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 VERT_TOL = 1e-5  # m
 PIXEL_SHARE = 0.005  # of the pixels either overlay covers

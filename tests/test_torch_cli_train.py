@@ -9,8 +9,11 @@ raise the JAX package's errors), the mesh flags' checks, which must raise,
 and ``--visu_to_save``'s eval triptychs. ``--valset
 3dpw`` is in tests/test_torch_threedpw.py."""
 
+import contextlib
+import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -18,18 +21,29 @@ import torch
 
 from multihmr_tpu_torch.cli.train import main
 from tests.test_cli_train import _write_bedlam, _write_ehf
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 TINY = ["--backbone", "dinov2_vits14", "--img_size", "56", "--xat_depth", "1",
         "--max_people", "4", "--n_devices", "1", "--device", "cpu"]
 TRAIN = ["--batch_size", "2", "--iter_per_epoch", "2", "--lr", "1e-5"]
 
 
-@pytest.fixture
-def trees(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def written_trees(tmp_path_factory):
+    """The synthetic BEDLAM and EHF trees, written once a module; no case
+    runs in them."""
+    root = tmp_path_factory.mktemp("trees")
     rng = np.random.default_rng(0)
-    _write_bedlam(tmp_path / "data" / "BEDLAM", rng)
-    _write_bedlam(tmp_path / "data" / "BEDLAM", rng, split="validation")
-    _write_ehf(tmp_path / "data" / "EHF", rng)
+    _write_bedlam(root / "data" / "BEDLAM", rng)
+    _write_bedlam(root / "data" / "BEDLAM", rng, split="validation")
+    _write_ehf(root / "data" / "EHF", rng)
+    return root
+
+
+@pytest.fixture
+def trees(written_trees, tmp_path, monkeypatch):
+    """A case's own copy of the trees, as its working directory."""
+    shutil.copytree(written_trees / "data", tmp_path / "data")
     monkeypatch.chdir(tmp_path)
     return tmp_path
 
@@ -39,11 +53,41 @@ def _metrics(name):
         return {r["tag"]: r["value"] for r in map(json.loads, f)}
 
 
+# one BEDLAM epoch with the epoch-end BEDLAM + EHF evaluation; with
+# ``--resume 1`` and no saved state it trains from scratch
+EPOCH = TRAIN + ["--valset", "bedlam", "ehf", "--val_n", "2", "1", "--resume", "1"]
+
+
+def _epoch(tp_mode, name):
+    """``main`` of one EPOCH on ``tp_mode`` in the working directory: its
+    stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(TINY + EPOCH + ["--n_epoch", "1", "--tp_mode", tp_mode, "--name", name])
+    return out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def heads_epoch(written_trees, tmp_path_factory):
+    """One EPOCH on the channels-major stream, run once a module in its own
+    copy of the trees: (that directory, stdout). Read by
+    test_train_cli_end_to_end[heads]; test_train_cli_resume_and_pretrained
+    continues from a copy of it."""
+    root = tmp_path_factory.mktemp("heads_epoch")
+    shutil.copytree(written_trees / "data", root / "data")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(root)
+        return root, _epoch("heads", "itest")
+
+
 @pytest.mark.parametrize("tp_mode", ["ring", "heads"])
-def test_train_cli_end_to_end(trees, capsys, tp_mode):
-    main(TINY + TRAIN + ["--n_epoch", "1", "--tp_mode", tp_mode, "--valset", "bedlam", "ehf",
-                         "--val_n", "2", "1", "--name", "itest"])
-    out = capsys.readouterr().out
+def test_train_cli_end_to_end(request, monkeypatch, tp_mode):
+    if tp_mode == "heads":
+        root, out = request.getfixturevalue("heads_epoch")
+        monkeypatch.chdir(root)  # read only
+    else:
+        request.getfixturevalue("trees")
+        out = _epoch(tp_mode, "itest")
     assert "remat auto" in out and "no remat" in out
     loss = out.split("epoch 0: mean loss")[1].split()[0]
     assert np.isfinite(float(loss))
@@ -64,21 +108,23 @@ def test_train_cli_eval_only_fp32(trees, capsys):
     assert not os.path.exists("ckpts")  # evaluation only: no training, no checkpoint
 
 
-def test_train_cli_resume_and_pretrained(trees, capsys):
-    args = TINY + TRAIN + ["--valset", "ehf", "--val_n", "1", "--name", "res", "--resume", "1"]
-    main(args + ["--n_epoch", "1"])
-    out = capsys.readouterr().out
+def test_train_cli_resume_and_pretrained(heads_epoch, tmp_path, monkeypatch, capsys):
+    """The first epoch is heads_epoch's (``--resume 1`` with no saved state);
+    the same command line with one more epoch continues in a copy of it."""
+    root, out = heads_epoch
     assert "no saved train state found" in out and "epoch 0: mean loss" in out
-    main(args + ["--n_epoch", "2"])  # the same command line, one more epoch
+    shutil.copytree(root, tmp_path, dirs_exist_ok=True)
+    monkeypatch.chdir(tmp_path)
+    main(TINY + EPOCH + ["--n_epoch", "2", "--tp_mode", "heads", "--name", "itest"])
     out = capsys.readouterr().out
     assert "restored epoch 0, continuing at epoch 1" in out
     assert "epoch 1: mean loss" in out and "epoch 0: mean loss" not in out
-    state = torch.load(os.path.join("ckpts", "res", "state", "state_000001.pt"),
+    state = torch.load(os.path.join("ckpts", "itest", "state", "state_000001.pt"),
                        weights_only=True)
     assert state["epoch"] == 1
     # the checkpoint of epoch 1 loads as --pretrained and evaluates
     main(TINY + ["--valset", "ehf", "--eval_only", "1", "--name", "pre",
-                 "--pretrained", os.path.join("ckpts", "res", "ckpt_000001.pt")])
+                 "--pretrained", os.path.join("ckpts", "itest", "ckpt_000001.pt")])
     assert "eval[ehf-test] epoch 0" in capsys.readouterr().out
 
 

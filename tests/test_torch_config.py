@@ -12,6 +12,7 @@ import pytest
 
 from multihmr_tpu import config as jcfg
 from multihmr_tpu_torch import config as tcfg
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 NAMES = ("multiHMR_896_L", "multiHMR_672_L", "multiHMR_672_B", "multiHMR_672_S",
          "multiHMR_1288_L_bedlam", "multiHMR_1288_L_agora")

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from multihmr_tpu_torch.ops import attention, cuda_lib, norm
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 pytestmark = pytest.mark.cuda
 

@@ -28,6 +28,7 @@ from multihmr_tpu_torch.train import metrics as tmet
 from multihmr_tpu_torch.utils import logging as tlog
 from tests.test_cli_train import _write_bedlam
 from tests.test_datasets import write_ply_ascii, write_ply_binary
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 def _sample(rng, n_humans, extra=False):

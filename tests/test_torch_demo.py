@@ -14,6 +14,7 @@ import torch
 from multihmr_tpu_torch.bodymodel.assets import synthetic_body_model
 from multihmr_tpu_torch.models.multihmr import Readback, persons_from_host
 from tests.test_checkpoint import TinyConfig
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 class _FakeBody:

@@ -38,6 +38,7 @@ from multihmr_tpu_torch.train import evaluate as teval
 from tests.test_cli_train import _write_bedlam
 from tests.test_datasets import write_ply_binary
 from tests.test_torch_train import BM_ARGS, _cfg
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 @pytest.fixture(scope="module")

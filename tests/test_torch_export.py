@@ -54,6 +54,7 @@ from tests.test_torch_anny import _jax_model as _jax_anny
 from tests.test_torch_anny import _tiny_cfgs as _anny_cfgs
 from tests.test_torch_anny import tempered as anny_tempered
 from tests.test_torch_model import TOLS, _rel_err
+from tests.torch_pool import child_env
 
 REPO = Path(__file__).resolve().parents[1]
 S, B, DET = 56, 2, 0.1
@@ -203,7 +204,8 @@ print(json.dumps({"max_abs_diff": err, "model_code": sorted(
 @pytest.mark.parametrize("smplx", ["heads"], indirect=True)
 def test_artifact_is_self_contained(smplx, tmp_path):
     """Two files, and a fresh process loads and runs them with the port's
-    models, factory and bodymodel blocked, bitwise as the live forward."""
+    models, factory and bodymodel blocked, bitwise as the live forward (the
+    child runs this process's torch pool: the outputs depend on it)."""
     assert sorted(os.listdir(smplx.tdir)) == ["meta.json", "model.pt2"]
     x, K = (torch.from_numpy(a) for a in _inputs(3))
     with torch.no_grad():
@@ -211,7 +213,7 @@ def test_artifact_is_self_contained(smplx, tmp_path):
     ref = tmp_path / "ref.pt"
     torch.save({"x": x, "K": K, "out": out}, ref)
     res = subprocess.run([sys.executable, "-c", _FRESH_LOAD, smplx.tdir, str(ref), "cpu"],
-                         cwd=REPO, capture_output=True, text=True, timeout=300)
+                         cwd=REPO, capture_output=True, text=True, timeout=300, env=child_env())
     assert res.returncode == 0, res.stderr[-3000:]
     assert json.loads(res.stdout.splitlines()[-1]) == {"max_abs_diff": 0.0, "model_code": []}
 

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from multihmr_tpu_torch.ops.rotations import rot6d_to_rotmat, rotmat_to_rotvec, rotvec_to_rotmat
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 def _losses(out):

@@ -1,8 +1,9 @@
 """The textual kernel variants against the CUDA sources, on the CPU.
 
 chip_smoke.py phase 12 builds deliberately broken copies of K5, K1, K3, K4a,
-K4b and K2, and tools/kernel_timing.py builds K1, K3, K4a, K4b, K5 and K2
-with parts of their work removed, each from its kernel's source with (old, new) substitutions
+K4b and K2 (``kernel_timing.MUTANTS``), and tools/kernel_timing.py builds K1,
+K3, K4a, K4b, K5 and K2 with parts of their work removed
+(``kernel_timing.VARIANTS``), each from its kernel's source with (old, new) substitutions
 (``cuda_lib.build_variants``, which raises on a site it does not find exactly
 once). The builds run only on the card; these tests keep every site present
 and unique in the sources as the kernels change.
@@ -10,13 +11,11 @@ and unique in the sources as the kernels change.
 
 import pytest
 
-import chip_smoke
 from multihmr_tpu_torch.ops import cuda_lib
 from multihmr_tpu_torch.tools import kernel_timing
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
-TABLES = ([("flash_fwd_std.cu", chip_smoke.K5_MUTANTS), ("flash_fwd.cu", chip_smoke.K1_MUTANTS),
-           ("flash_bwd.cu", chip_smoke.K3_MUTANTS), ("flash_bwd.cu", chip_smoke.K4A_MUTANTS),
-           ("flash_bwd.cu", chip_smoke.K4B_MUTANTS), ("layernorm_cm.cu", chip_smoke.K2_MUTANTS)]
+TABLES = (list(kernel_timing.MUTANTS.values())
           + [(source, table) for (source, _, _), table in kernel_timing.VARIANTS.items()])
 CASES = [(source, name, subs) for source, table in TABLES for name, subs in table.items()]
 
@@ -31,9 +30,8 @@ def test_variant_sites_are_unique(source, name, subs):
 
 
 def test_mutant_counts():
-    assert (len(chip_smoke.K5_MUTANTS), len(chip_smoke.K1_MUTANTS),
-            len(chip_smoke.K3_MUTANTS), len(chip_smoke.K4A_MUTANTS),
-            len(chip_smoke.K4B_MUTANTS), len(chip_smoke.K2_MUTANTS)) == (4, 2, 2, 2, 2, 2)
+    assert {k: len(table) for k, (_, table) in kernel_timing.MUTANTS.items()} == {
+        "K5": 4, "K1": 2, "K3": 2, "K4a": 2, "K4b": 2, "K2": 2}
 
 
 def test_variant_tables_cover_each_kernel():
@@ -64,7 +62,7 @@ def test_two_pass_mutants_leave_k3_alone(table):
     the kDq = false instance, and no K4a mutant touches K3's kernel."""
     text = (cuda_lib.CSRC / "flash_bwd.cu").read_text()
     k3 = text[text.index("flash_bwd_dkv_bf16_kernel("):text.index("flash_bwd_dq_bf16_kernel(")]
-    for subs in getattr(chip_smoke, table).values():
+    for subs in getattr(kernel_timing, table).values():
         for old, new in subs:
             if table == "K4A_MUTANTS":
                 assert old not in k3

@@ -22,6 +22,7 @@ from multihmr_tpu_torch.train.memory import (
     resolve_remat_flags,
     token_dims,
 )
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 H100 = 80e9
 GIB = 2 ** 30

@@ -38,6 +38,7 @@ from multihmr_tpu_torch.bodymodel.core import BodyModel
 from multihmr_tpu_torch.io.convert import params_from_jax
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
 from tests.test_checkpoint import TinyConfig, make_reference_state_dict
+from tests.torch_pool import child_env
 
 REPO = Path(__file__).resolve().parents[1]
 HEAD = ("scores", "scores_det", "loc", "dist", "shape", "expression", "transl")
@@ -181,6 +182,6 @@ def test_port_imports_without_jax():
         "print('ok', len(sys.modules))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300, env=child_env())
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")

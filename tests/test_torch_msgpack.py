@@ -4,8 +4,9 @@
 files the JAX package's ``save_checkpoint`` writes, for the tiny slice of
 tests/test_torch_model.py: the state dict bitwise equal to ``params_from_jax``
 of the same params, and the port's forward within that test's "tempered"
-fp32 tolerances of the JAX forward. Also chip_smoke.py's writer (phase 20
-(c)) byte for byte against ``flax.serialization.to_bytes``."""
+fp32 tolerances of the JAX forward. Also the package's writer
+(``flax_msgpack.dump_parts``, which chip_smoke.py phase 20 (c) uses) byte
+for byte against ``flax.serialization.to_bytes``."""
 
 import json
 import os
@@ -18,7 +19,6 @@ import pytest
 import torch
 from flax import serialization
 
-import chip_smoke
 from multihmr_tpu.bodymodel import synthetic_body_model as jsynthetic
 from multihmr_tpu.io.checkpoint import save_checkpoint
 from multihmr_tpu.models.multihmr import MultiHMR as JMultiHMR
@@ -30,6 +30,7 @@ from multihmr_tpu_torch.io.checkpoint import load_jax_checkpoint
 from multihmr_tpu_torch.io.convert import params_from_jax
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
 from tests.test_torch_model import TOLS, _rel_err, _tiny_cfg
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 def _mixed_tree():
@@ -119,11 +120,12 @@ def test_decoder_refuses(data, match):
 
 
 def test_chip_smoke_writer_matches_flax(jax_params):
-    """chip_smoke.py's writer makes the bytes flax makes, on the mixed tree
-    and on a JAX model's parameters."""
+    """The package's writer (chip_smoke.py phase 20's) makes the bytes flax
+    makes, on the mixed tree and on a JAX model's parameters (the reader on
+    those bytes: test_decoder_matches_flax)."""
     for tree in (_mixed_tree(), jax.device_get(jax_params[1])):
         tree = jax.tree_util.tree_map(np.asarray, tree)
-        assert b"".join(chip_smoke.flax_msgpack_parts(tree)) == serialization.to_bytes(tree)
+        assert b"".join(flax_msgpack.dump_parts(tree)) == serialization.to_bytes(tree)
 
 
 @pytest.fixture(scope="module")

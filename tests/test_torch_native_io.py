@@ -25,6 +25,7 @@ import pytest
 from multihmr_tpu.io import native as jnative
 from multihmr_tpu_torch.io import native
 from multihmr_tpu_torch.io.preprocessing import normalize_nhwc, preprocess_array
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 LEVEL = 1 / 255 / 0.225 + 1e-4  # one uint8 level, normalized (the largest std divisor)
 JAX_SHARE = 1e-4

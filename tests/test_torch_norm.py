@@ -22,6 +22,7 @@ import torch
 from multihmr_tpu.ops import norm as jnorm
 from multihmr_tpu_torch.ops import cuda_lib
 from multihmr_tpu_torch.ops import norm as tnorm
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 def _inputs(rng, n, D=64):

@@ -25,6 +25,7 @@ from multihmr_tpu_torch.ops import fourier as tfourier
 from multihmr_tpu_torch.ops import image as timage
 from multihmr_tpu_torch.ops import rotations as trot
 from multihmr_tpu_torch.io import preprocessing as tpre
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 ATOL = 1e-5  # element-wise fp32
 

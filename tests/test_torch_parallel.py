@@ -40,6 +40,7 @@ from multihmr_tpu_torch.parallel import sharding
 from multihmr_tpu_torch.parallel.launch import Ranks
 from tests import torch_parallel_ranks as ranks
 from tests.test_checkpoint import make_reference_state_dict
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 CFG = JModelConfig(img_size=56, max_people=4, person_center="head", compute_dtype="float32",
                    vit_override=JViTConfig(embed_dim=32, depth=2, num_heads=2,

@@ -19,6 +19,7 @@ import torch
 
 from multihmr_tpu.utils import profiling as jprof
 from multihmr_tpu_torch.utils import profiling as tprof
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 def test_timer_summary_matches_jax():

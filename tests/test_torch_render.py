@@ -27,6 +27,7 @@ import multihmr_tpu.render as J
 from multihmr_tpu_torch import render as T
 from multihmr_tpu_torch.io import native
 from multihmr_tpu_torch.render.render import _rasterize, _soften_mask
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 def make_triangle_scene():

@@ -23,6 +23,7 @@ from multihmr_tpu.ops.attention import mha_reference
 from multihmr_tpu.parallel import make_mesh as jmake_mesh
 from multihmr_tpu_torch.parallel.launch import Ranks
 from tests import torch_parallel_ranks as ranks
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 # the module (the package re-exports its function of the same name)
 jra = importlib.import_module("multihmr_tpu.parallel.ring_attention")

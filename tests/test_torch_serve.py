@@ -18,6 +18,7 @@ equal counts; ``transl_pelvis`` to the joints' (j3d) tolerance.
 import io
 import json
 import os
+import shutil
 import threading
 import time
 import urllib.error
@@ -35,6 +36,7 @@ from multihmr_tpu_torch.serve import DeadlineExceeded, DynamicBatcher, QueueFull
 from multihmr_tpu_torch.serve.server import build_batched_infer
 from tests.test_checkpoint import TinyConfig, make_reference_state_dict
 from tests.test_torch_model import TOLS
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 S = 56
 K_TINY = np.asarray([[100.0, 0, S / 2], [0, 100.0, S / 2], [0, 0, 1]], np.float32)
@@ -594,14 +596,20 @@ def test_http_overload_status_codes(model):
 
 # ---- cli/serve.py
 
-@pytest.fixture
-def tiny_factory(monkeypatch):
+def _tiny_factory(mp):
+    """``factory``'s named configurations and body model swapped for tiny
+    ones through the monkeypatch ``mp``."""
     import multihmr_tpu_torch.factory as factory
 
     cfg = TinyConfig(img_size=S, max_people=3, person_center="head", compute_dtype="float32")
-    monkeypatch.setattr(factory, "named_config", lambda name: cfg)
+    mp.setattr(factory, "named_config", lambda name: cfg)
     small = synthetic_body_model(num_joints=55, num_vertices=64, num_extra=21, num_lmk=51)
-    monkeypatch.setattr(factory, "smplx_like_synthetic", lambda nb: small)
+    mp.setattr(factory, "smplx_like_synthetic", lambda nb: small)
+
+
+@pytest.fixture
+def tiny_factory(monkeypatch):
+    _tiny_factory(monkeypatch)
 
 
 def test_serve_cli_on_the_cpu(tiny_factory):
@@ -640,14 +648,23 @@ def test_serve_cli_refusals(flags, error, match, monkeypatch):
 
 # ---- cli/serve.py --artifact (a tools/export_model.py artifact, io/export.py)
 
-@pytest.fixture
-def artifact(tiny_factory, tmp_path):
+@pytest.fixture(scope="module")
+def exported(tmp_path_factory):
     """A tiny multiHMR_672_B artifact exported on the CPU at batch 2 with
-    det_thresh 0 by ``tools/export_model.py``."""
+    det_thresh 0 by ``tools/export_model.py``, once a module."""
     from multihmr_tpu_torch.tools import export_model
 
-    return export_model.main(["--model_name", "multiHMR_672_B", "--out", str(tmp_path / "a"),
-                              "--batch", "2", "--det_thresh", "0.0", "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny_factory(mp)
+        return export_model.main(["--model_name", "multiHMR_672_B", "--out",
+                                  str(tmp_path_factory.mktemp("artifact") / "a"), "--batch", "2",
+                                  "--det_thresh", "0.0", "--device", "cpu"])
+
+
+@pytest.fixture
+def artifact(tiny_factory, exported, tmp_path):
+    """A case's own copy of the exported artifact."""
+    return shutil.copytree(exported, str(tmp_path / "a"))
 
 
 def test_serve_cli_artifact_answers(artifact):

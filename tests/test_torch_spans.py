@@ -26,6 +26,7 @@ from multihmr_tpu_torch.parallel.infer import folder_inference
 from multihmr_tpu_torch.utils import profiling
 from portbench import harness
 from portbench.trace import Trace
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 S = 56
 ORDER = ["stack", "upload", "vit", "head", "body", "fk", "readback"]

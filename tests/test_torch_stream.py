@@ -54,6 +54,7 @@ from tests.test_checkpoint import make_reference_state_dict
 from tests.test_torch_model import TOLS, _rel_err, _tiny_cfg
 from tests.test_torch_train import BM_ARGS, LR, _batch, _cfg, _port_bm, _rel
 from tests.test_torch_vit import CFG, GRID, _port, _random_params
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

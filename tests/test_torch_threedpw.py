@@ -17,8 +17,12 @@ chumpy. Tolerances, each relative to the largest magnitude compared:
     forwards.
 """
 
+import contextlib
+import copy
+import io
 import os
 import pickle
+import shutil
 import sys
 import types
 
@@ -50,6 +54,7 @@ from multihmr_tpu_torch.train import metrics as tmetrics
 from tests.test_torch_bodymodel import FIELDS
 from tests.test_torch_checkpoint import tempered_state_dict
 from tests.test_torch_train import BM_ARGS
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 SMPL = dict(num_vertices=6890, num_joints=24, num_extra=0, num_lmk=0)
 
@@ -255,13 +260,15 @@ def test_build_dataset_matches_jax(tmp_path, smpl_dir):
     assert [int(h["smpl_gender_id"]) for h in annot["humans"]] == [1, 2]
 
 
-def _tiny_pair(seed=0):
-    """(JAX model, params, port model) on one tempered reference state dict."""
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """(JAX model, params, port model) on one tempered reference state dict,
+    built once a module; the cases only read them."""
     vit = dict(embed_dim=32, depth=2, num_heads=2)
     kw = dict(img_size=56, max_people=4, compute_dtype="float32")
     jcfg = jconfig.ModelConfig(vit_override=jconfig.ViTConfig(**vit), **kw)
     tcfg = tconfig.ModelConfig(vit_override=tconfig.ViTConfig(**vit), **kw)
-    sd = tempered_state_dict(jcfg, seed)
+    sd = tempered_state_dict(jcfg, 0)
     params = convert_torch_checkpoint(sd, jcfg)
     net = MultiHMRNet(tcfg)
     net.load_state_dict(convert_reference_checkpoint(sd, tcfg), strict=True)
@@ -303,8 +310,8 @@ def _self_consistent_3dpw(tmp_path, smpl_dir, jm, params):
             THREEDPW(annotations_dir=str(tmp_path / "a_port"), **kw))
 
 
-def test_evaluate_3dpw_matches_jax(tmp_path, smpl_dir):
-    jm, params, tm = _tiny_pair()
+def test_evaluate_3dpw_matches_jax(tmp_path, smpl_dir, tiny_pair):
+    jm, params, tm = tiny_pair
     ds_j, ds_t = _self_consistent_3dpw(tmp_path, smpl_dir, jm, params)
     rng = np.random.default_rng(6)
     s2s = rng.random((6890, 64)).astype(np.float32)
@@ -325,11 +332,11 @@ def test_evaluate_3dpw_matches_jax(tmp_path, smpl_dir):
     assert 0 < got["pa_mpjpe"] < got["mpjpe"]
 
 
-def test_h36m_regressor_without_smplx2smpl_raises():
+def test_h36m_regressor_without_smplx2smpl_raises(tiny_pair):
     """A guard where the JAX package fails inside an einsum at its first
     match: SMPL-X predictions need ``smplx2smpl`` before the H36M
     regressor."""
-    _, _, tm = _tiny_pair()
+    _, _, tm = tiny_pair
     with pytest.raises(ValueError, match="pass smplx2smpl"):
         teval.evaluate_dataset(tm, [], J_regressor_h36m=np.zeros((17, 6890), np.float32))
 
@@ -337,26 +344,52 @@ def test_h36m_regressor_without_smplx2smpl_raises():
 # ---- the training CLI's --valset 3dpw (tests/test_cli_train.py, JAX) ----
 
 
-@pytest.mark.parametrize("layout", ["flat", "reference"])
-def test_train_cli_eval_only_3dpw(tmp_path, monkeypatch, capsys, layout):
+def _cli_patches(mp):
+    """No ``$SMPLX_DIR``, and the CLI's synthetic body model cut to
+    ``BM_ARGS``, through the monkeypatch ``mp``."""
     import multihmr_tpu_torch.factory as tfactory
+
+    mp.delenv("SMPLX_DIR", raising=False)
+    small = dict(BM_ARGS)
+    mp.setattr(tfactory, "smplx_like_synthetic", lambda nb: tassets.synthetic_body_model(
+        num_betas=max(nb, 11), **small))
+
+
+CLI_ARGV = ["--backbone", "dinov2_vits14", "--img_size", "56", "--xat_depth", "1",
+            "--max_people", "4", "--n_devices", "1", "--device", "cpu",
+            "--valset", "3dpw", "--eval_only", "1", "--name", "itest-3dpw"]
+
+
+@pytest.fixture(scope="module")
+def skipped_3dpw(tmp_path_factory):
+    """A 3DPW tree without smplx2smpl.pkl and the CLI's evaluation of it, run
+    once a module in that tree: (the tree, the rng that wrote it, stdout).
+    Both layouts of test_train_cli_eval_only_3dpw continue from a copy."""
     from multihmr_tpu_torch.cli.train import main
     from tests.test_cli_train import _write_threedpw
 
+    root = tmp_path_factory.mktemp("skipped_3dpw")
     rng = np.random.default_rng(2)
-    _write_threedpw(tmp_path, rng)
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv("SMPLX_DIR", raising=False)
-    small = dict(BM_ARGS)
-    monkeypatch.setattr(tfactory, "smplx_like_synthetic", lambda nb: tassets.synthetic_body_model(
-        num_betas=max(nb, 11), **small))
-    argv = ["--backbone", "dinov2_vits14", "--img_size", "56", "--xat_depth", "1",
-            "--max_people", "4", "--n_devices", "1", "--device", "cpu",
-            "--valset", "3dpw", "--eval_only", "1", "--name", "itest-3dpw"]
+    _write_threedpw(root, rng)
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        _cli_patches(mp)
+        mp.chdir(root)
+        main(CLI_ARGV)
+    return root, rng, out.getvalue()
+
+
+@pytest.mark.parametrize("layout", ["flat", "reference"])
+def test_train_cli_eval_only_3dpw(skipped_3dpw, tmp_path, monkeypatch, capsys, layout):
+    from multihmr_tpu_torch.cli.train import main
+
+    root, rng, out = skipped_3dpw
+    rng = copy.deepcopy(rng)  # where writing the tree left it
     # no smplx2smpl.pkl: the valset is skipped with its reason
-    main(argv)
-    out = capsys.readouterr().out
     assert "3dpw eval SKIPPED" in out and "eval[3dpw" not in out
+    shutil.copytree(root, tmp_path, dirs_exist_ok=True)
+    monkeypatch.chdir(tmp_path)
+    _cli_patches(monkeypatch)
 
     sub = "smplx" if layout == "reference" else ""
     os.makedirs(os.path.join("models", sub), exist_ok=True)
@@ -369,7 +402,7 @@ def test_train_cli_eval_only_3dpw(tmp_path, monkeypatch, capsys, layout):
     if layout == "reference":
         for g in ("male", "female"):
             write_smpl_pkl(os.path.join("models", "smpl", f"SMPL_{g.upper()}.pkl"), g)
-    main(argv)
+    main(CLI_ARGV)
     out = capsys.readouterr().out
     assert "eval[3dpw-test] epoch 0" in out
     assert "'n_images': 2" in out.split("eval[3dpw-test]")[1][:400]

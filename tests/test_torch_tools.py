@@ -43,6 +43,7 @@ from multihmr_tpu import config as jconfig
 from multihmr_tpu_torch import config as tconfig
 from tests.test_manifest import write_smplx_fixture
 from tests.test_torch_checkpoint import _small_bodies, _tempered_file
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 REPO = Path(__file__).resolve().parents[1]
 NAME = "multiHMR_672_S"

@@ -40,6 +40,7 @@ from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
 from multihmr_tpu_torch.train import loss as tloss
 from multihmr_tpu_torch.train import trainer as ttrainer
 from tests.test_training import TinyConfig
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 LR = 1e-3
 BM_ARGS = dict(num_vertices=64, num_joints=55, num_extra=21, num_lmk=51)

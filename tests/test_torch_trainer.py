@@ -25,6 +25,7 @@ from multihmr_tpu_torch.data.collate import collate_padded
 from multihmr_tpu_torch.io.checkpoint import load_checkpoint
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
 from multihmr_tpu_torch.train.trainer import Trainer, make_train_step, to_device
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 CFG = ModelConfig(img_size=56, max_people=4, compute_dtype="float32",
                   vit_override=ViTConfig(embed_dim=32, depth=2, num_heads=2))

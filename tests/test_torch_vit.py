@@ -28,6 +28,7 @@ from multihmr_tpu.config import ViTConfig
 from multihmr_tpu.models.vit import DINOv2ViT as JViT
 from multihmr_tpu_torch.io.convert import rename_tree
 from multihmr_tpu_torch.models.vit import DINOv2ViT as TViT, padded_len
+import tests.torch_pool  # noqa: F401  (one fixed torch thread pool)
 
 CFG = ViTConfig(embed_dim=32, depth=2, num_heads=2)
 GRID = 4
