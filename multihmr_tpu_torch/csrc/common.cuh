@@ -5,6 +5,7 @@
 // kernel computes in fp32.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled (no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,6 +67,28 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 2^x on the FMA pipe, for x <= 0 (the exponent of an online softmax):
+// Cody-Waite range reduction, x = n + f with n = floor(x) and f in [0, 1),
+// then 2^f by a degree-4 polynomial with p(0) = 1, minimax in relative error
+// on [0, 1], and n added to the exponent bits (n is the low bits of t; its
+// shift leaves only n << 23). Relative error 2.9e-6 (2^-18.4) in exact
+// arithmetic, 2.97e-6 with its fp32 steps on an H100 over [0, 1) and
+// [-126, 0] (tools/kernel_timing.py exp2). About nine FMA- and integer-pipe
+// instructions in place of one on the special-function unit (ex2.approx),
+// so that a kernel whose exponentials keep the SFU as busy as its products
+// keep the tensor cores can move a share of them off the SFU. x <= -127
+// (and -inf) gives 0, x in (-127, -126) a number below 2^-126; x = n + 1 -
+// ulp may come out as 2^n * p(1), and p(1) is 2 within the same error.
+__device__ __forceinline__ float poly_exp2(float x) {
+  constexpr float kMagic = 12582912.f;  // 1.5 * 2^23: x + kMagic holds n in its low bits
+  x = fmaxf(x, -127.f);
+  const float t = __fadd_rd(x, kMagic);  // kMagic + floor(x), exactly
+  const float f = x - (t - kMagic);
+  const float p = fmaf(fmaf(fmaf(fmaf(1.3425155e-2f, f, 5.2245375e-2f), f, 2.4127856e-1f), f,
+                            6.9304514e-1f), f, 1.f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
 }
 
 // A fragment of k-step j from the C fragments of n-tiles 2j and 2j + 1
@@ -161,6 +184,12 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// the descriptor of the address `bytes` (a multiple of 16) further on: the
+// start-address field (address / 16, 14 bits) moves, the strides stay
+__device__ __forceinline__ uint64_t desc_plus(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -176,9 +205,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keep the compiler from moving reads or writes of d across an asynchronous
 // wgmma (issued before, waited for after)
-__device__ __forceinline__ void reg_fence(float (&d)[8][4]) {
+template <int kN>
+__device__ __forceinline__ void reg_fence(float (&d)[kN][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
 }
@@ -243,20 +273,53 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[4][4], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-__device__ __forceinline__ void reg_fence(float (&d)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+// the same with a 16 x 16 B (n = 16), for n-tiles j < 2
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[2][4], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : MHMR_ACC4(0), MHMR_ACC4(1)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// the same with a 16 x 128 B (n = 128), for n-tiles j < 16. An MN-major B
+// spans two 64-token swizzle atoms: its descriptor's leading byte offset is
+// the distance from the first atom to the second
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : MHMR_ACC4(0), MHMR_ACC4(1), MHMR_ACC4(2), MHMR_ACC4(3), MHMR_ACC4(4), MHMR_ACC4(5),
+        MHMR_ACC4(6), MHMR_ACC4(7), MHMR_ACC4(8), MHMR_ACC4(9), MHMR_ACC4(10), MHMR_ACC4(11),
+        MHMR_ACC4(12), MHMR_ACC4(13), MHMR_ACC4(14), MHMR_ACC4(15)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 #undef MHMR_ACC4
 
 // keep the compiler from reusing the registers of a wgmma A fragment before
 // the wgmma that reads them has been waited for
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
+template <int kN>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[kN][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
 }
@@ -336,6 +399,48 @@ __device__ __forceinline__ void named_barrier_arrive(int id) {
 }
 
 inline bool is_aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ---- tensor maps (host)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, resolved through the runtime's entry-point query
+// (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-dim bf16 tensor map (dims and boxes innermost first, the byte strides
+// of dims 1-3) with the 128-byte swizzle: the box's inner 128 bytes land as
+// one swizzled row; elements past a dim's extent read as zeros
+inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                                  const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 // the rule of the bf16 K1, K3, K4a and K4b (ops/attention.py::_check_rows16): token
 // stride 1, a token count and channel, head and batch strides that are

@@ -56,8 +56,6 @@
 // row, the scaled q row and the output row in registers, 64-key k/v tiles
 // staged [key][channel] with 16-byte loads and read as broadcasts, and the
 // same online softmax on chunks of 16 keys, in plain fp32 FMAs (no TF32).
-#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled (no libcuda link)
-
 #include <chrono>
 
 #include "common.cuh"
@@ -308,53 +306,19 @@ flash_fwd_std_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// ---- tensor maps (host)
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, resolved through the runtime's entry-point query
-// (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a [B, H, N, 64] bf16 view with element strides st (channel stride 1) as a
 // tensor map over dims (64, N, H, B), innermost first: boxes of 64 channels
 // x kBlockN tokens, 128-byte swizzle, rows past N read as zeros. The stride
 // of a size-1 dim is never used: it is given as 128 bytes
 cudaError_t encode_view(CUtensorMap* map, const void* base, int B, int H, int N,
                         const StdStrides& st) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {kDh, static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.n) * 2,
                                  H == 1 ? 128u : static_cast<cuuint64_t>(st.h) * 2,
                                  B == 1 ? 128u : static_cast<cuuint64_t>(st.b) * 2};
   const cuuint32_t box[4] = {kDh, kBlockN, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_bf16_4d(map, base, dims, strides, box);
 }
 
 // ---------------------------------------------------------------- fp32 path

@@ -137,9 +137,10 @@ def padded_len(n_tok: int) -> int:
 
 def _check_rows16(what, **tensors):
     """The bf16 flash kernels (K1, K3, K4a, K4b) copy their tiles as 16-byte
-    rows of 8 tokens (``cp.async``): each ``[B, H, Dh, N]`` operand needs
-    token stride 1, a token count and channel, head and batch strides that
-    are multiples of 8, and a 16-byte aligned base pointer; ``[B, H, N]``
+    rows of 8 tokens (K1 by TMA, K3, K4a and K4b by ``cp.async``): each
+    ``[B, H, Dh, N]`` operand needs token stride 1, a token count and
+    channel, head and batch strides that are multiples of 8, and a 16-byte
+    aligned base pointer; ``[B, H, N]``
     fp32 rows (lse, D) a 16-byte aligned base. Nothing pads or copies here: the channels-major ViT
     pre-pads its stream (models/vit.py), the standard stream's backward
     copies into a padded buffer."""

@@ -6,6 +6,7 @@
     python -m multihmr_tpu_torch.tools.kernel_timing ptxas [NAME ...]
     python -m multihmr_tpu_torch.tools.kernel_timing s1
     python -m multihmr_tpu_torch.tools.kernel_timing rounding [--seeds 10]
+    python -m multihmr_tpu_torch.tools.kernel_timing exp2
 
 ``ab``: one turn per TREE, in the order given (old new new old for an A/B):
 a fresh ``python -m`` of that tree's own copy of this module, run from the
@@ -50,6 +51,13 @@ views of one projection with junk (30.0) past kv_len 2305 and a random dO;
 and where the largest error sits, split into what the true and the pad
 queries add there.
 
+``exp2``: ``csrc/common.cuh``'s ``poly_exp2`` (the exponentials K1 moves to
+the FMA pipe) on the card, against ``torch.exp2`` in fp64: the largest
+relative error over x = -k 2^-23 for k < 2^23 (reduced arguments on a
+2^-23 grid of (0, 1], and 0) and x = -(1 - ulp), and over 2^24 points spread
+over [-126, 0]; its own kernel, built beside common.cuh in a temporary
+directory.
+
 ``forward``: the 896_L bf16 forward at batch 1 on one stream (seeded random
 weights, a seeded random image): CUDA events around back-to-back forwards,
 then ``torch.profiler`` over three: the wall and the device's busy time per
@@ -60,11 +68,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -75,23 +87,31 @@ from multihmr_tpu_torch.utils.profiling import cuda_ms, device_line, profile_ste
 # K4b share their kernel's walk), None for the other entries
 _K5_EXP = "fast_exp2(s[nt][2 * r]"
 _K5_EXP1 = "fast_exp2(s[nt][2 * r + 1]"
-_K1_EXP = "fast_exp2(s[nt][2 * r]"
-_K1_EXP1 = "fast_exp2(s[nt][2 * r + 1]"
+_K1_EXP = "(kPolyTiles >> nt & 1) ? poly_exp2(x) : fast_exp2(x);"
 _K3_EXP = "fast_exp2(fmaf(s[nt][i], scale_log2, -tLse[c] * kLog2e))"
 _K4A_EXP = "fast_exp2(fmaf(s[nt][i], scale_log2, -lse2[i / 2]))"
 VARIANTS = {
     ("flash_fwd.cu", "mhmr_flash_fwd_t", None): {
         "exp2f (accurate) for ex2.approx": [
-            (_K1_EXP, "exp2f(s[nt][2 * r]"), (_K1_EXP1, "exp2f(s[nt][2 * r + 1]"),
-            ("fast_exp2(row_max[r] - mx)", "exp2f(row_max[r] - mx)")],
-        "no exp2": [(_K1_EXP + " - mx)", "(s[nt][2 * r] - mx)"),
-                    (_K1_EXP1 + " - mx)", "(s[nt][2 * r + 1] - mx)")],
-        "no S = q k^T product": [("      wgmma_m64n64k16_ss<1, 1>(s, ",
-                                  "      if (0) wgmma_m64n64k16_ss<1, 1>(s, ")],
-        "no P.V product": [("      wgmma_m64n64k16<0>(o, pf[kk]",
-                            "      if (0) wgmma_m64n64k16<0>(o, pf[kk]")],
-        "no k/v copies after the first kStages - 1 tiles": [
-            ("      if (jn < n_tiles) {", "      if (0 && jn < n_tiles) {")],
+            (_K1_EXP, _K1_EXP.replace("fast_exp2", "exp2f")),
+            ("corr[r] = fast_exp2(m[r] - mc[r]);", "corr[r] = exp2f(m[r] - mc[r]);")],
+        "no exp2": [(_K1_EXP, "x;")],
+        "exp2 all on the SFU": [("constexpr uint32_t kPolyTiles = 0x0808;",
+                                 "constexpr uint32_t kPolyTiles = 0;")],
+        "no S = q k^T product": [("  for (int ks = 0; ks < 4; ++ks) {",
+                                  "  for (int ks = 0; ks < 0; ++ks) {")],
+        "no P.V product": [("    wgmma_m64n64k16<0>(o, pf[kk]",
+                            "    if (0) wgmma_m64n64k16<0>(o, pf[kk]")],
+        "no ping-pong between the consumer warpgroups": [
+            ("  const auto my_turn = [&] { named_barrier<256>(4 + cw); };",
+             "  const auto my_turn = [&] {};"),
+            ("    if (!(final_turn && cw == kConsumers - 1))\n"
+             "      named_barrier_arrive<256>(4 + (cw + 1) % kConsumers);\n", ""),
+            ("  if (cw == kConsumers - 1) named_barrier_arrive<256>(4);", "")],
+        "no k/v copies after the first kStages tiles": [
+            ("        mbar_expect_tx(&full[st], 2 * atoms * kTileBytes);\n",
+             "        if (j >= kStages) {\n          mbar_arrive(&full[st]);\n          continue;\n"
+             "        }\n        mbar_expect_tx(&full[st], 2 * atoms * kTileBytes);\n")],
     },
     ("flash_bwd.cu", "mhmr_flash_bwd_t", (0, 2)): {
         "exp2f (accurate) for ex2.approx": [(_K3_EXP, _K3_EXP.replace("fast_exp2", "exp2f"))],
@@ -171,11 +191,11 @@ K5_MUTANTS = {
     "output normalised by a row sum 1/64 too large": [
         ("inv[r] = 1.f / l;", "inv[r] = 1.f / (l * 1.015625f);")],
 }
-_K1_PV = "wgmma_m64n64k16<0>(o, pf[kk], wgmma_desc(sV + 16 * kk, 0, 1024), 1);"
+_K1_PV = "wgmma_m64n64k16<0>(o, pf[kk], desc_plus(dv, (kk / 4) * kTileBytes + 32 * (kk % 4)), 1);"
 K1_MUTANTS = {
     "P.V k-step 3 (keys 48-63) of every kv tile dropped": [(_K1_PV, "if (kk != 3) " + _K1_PV)],
     "P.V k-step 3 (keys 48-63) of the first kv tile dropped": [
-        (_K1_PV, "if (j != 0 || kk != 3) " + _K1_PV)],
+        (_K1_PV, "if (tile != 0 || kk != 3) " + _K1_PV)],
 }
 K2_MUTANTS = {
     "channels 0-7 (warp 0's first load) left out of the variance sum": [
@@ -740,6 +760,60 @@ def rounding(seeds: int) -> int:
     return 0
 
 
+_POLY_SRC = r"""
+#include "common.cuh"
+
+__global__ void poly_exp2_kernel(const float* x, float* y, long long n) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  if (i < n) y[i] = mhmr::poly_exp2(x[i]);
+}
+
+extern "C" int poly_exp2_run(const float* x, float* y, long long n) {
+  poly_exp2_kernel<<<static_cast<unsigned>((n + 255) / 256), 256>>>(x, y, n);
+  return cudaDeviceSynchronize();
+}
+"""
+
+
+def poly_exp2_error(tmp) -> dict:
+    """``poly_exp2``'s largest relative error on the card, against
+    ``torch.exp2`` in fp64: "[0, 1)" over x = -k 2^-23 (k < 2^23) and
+    -(1 - ulp), whose reduced arguments cover [0, 1) on a 2^-23 grid;
+    "[-126, 0]" over 2^24 points spread over that range."""
+    from multihmr_tpu_torch.ops import cuda_lib
+
+    d = Path(tmp)
+    shutil.copy(cuda_lib.CSRC / "common.cuh", d)
+    (d / "poly.cu").write_text(_POLY_SRC)
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "poly.so"),
+                    str(d / "poly.cu")], check=True, capture_output=True)
+    run = ctypes.CDLL(str(d / "poly.so")).poly_exp2_run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+    one = torch.tensor(1.0, device="cuda")
+    unit = -(torch.arange(1 << 23, device="cuda", dtype=torch.int32) * 2.0 ** -23)  # (-1, 0]
+    unit = torch.cat([unit, -torch.nextafter(one, -one)[None]])  # and -(1 - ulp)
+    spread = torch.linspace(-126.0, 0.0, 1 << 24, device="cuda")
+    out = {}
+    for name, x in (("[0, 1)", unit), ("[-126, 0]", spread)):
+        y = torch.empty_like(x)
+        err = run(x.data_ptr(), y.data_ptr(), x.numel())
+        if err:
+            raise RuntimeError(f"poly_exp2 kernel: CUDA error {err}")
+        ref = torch.exp2(x.double())
+        out[name] = ((y.double() - ref).abs() / ref).max().item()
+    return out
+
+
+def exp2() -> int:
+    card = device_line("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        errs = poly_exp2_error(tmp)
+    print("poly_exp2 largest relative error: " + ", ".join(
+        f"x in {k}: {e:.3e} (2^{math.log2(e):.2f})" for k, e in errs.items()) + f" [{card}]",
+        flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -755,6 +829,7 @@ def main(argv=None) -> int:
     p = sub.add_parser("rounding", help="bf16 dk against the plain backward, with and "
                                         "without ds rounded to bf16")
     p.add_argument("--seeds", type=int, default=10)
+    sub.add_parser("exp2", help="poly_exp2's relative error on the card")
     sub.add_parser("_turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -772,6 +847,8 @@ def main(argv=None) -> int:
         return s1()
     if args.cmd == "rounding":
         return rounding(args.seeds)
+    if args.cmd == "exp2":
+        return exp2()
     return forward(args.tp_mode, args.ops)
 
 

@@ -27,7 +27,11 @@ gradients.
 The bf16 K1, K3, K4a and K4b take only 16-byte token rows (a token count
 and strides that are multiples of 8): their cases run at the ViT's
 pre-padded lengths with junk past kv_len, (104, 97), (2312, 2305) and
-(640, 577), and an odd token count or channel stride raises; the fp32 paths
+(640, 577), K1's also at (4104, 4097), (8472, 8465), a kv_len that is a
+multiple of 128 and one whose last 128-key tile has 33-64 keys, with 6
+heads at batch 1, NaN past kv_len, q scaled x8 and a negative scale; an odd
+token count or
+channel stride raises; the fp32 paths
 take any stride and keep odd token counts. K2 takes only
 16-byte channel rows too: its cases run at aligned token counts (336 and
 the 672 px stream's 2,312) at D = 128, 384 and 1024; an odd count or a
@@ -74,23 +78,52 @@ def _check_fwd(out, lse, ref_out, ref_lse):
 # (dtype, N, kv_len): bf16 on pre-padded lengths, fp32 at odd ones
 FLASH_CASES = ([(torch.bfloat16, n, kv) for n, kv in ((104, 97), (2312, 2305), (640, 577))]
                + [(torch.float32, n, kv) for n, kv in ((97, None), (2305, None), (640, 577))])
+# K1 alone, bf16 (dtype, N, kv_len, heads, batch, junk past kv_len, q
+# scale, softmax scale): the 896 and 1288 px streams (a last kv tile of 1
+# and 17 keys), kv_len a multiple of 128 (no ragged tile) and one whose last
+# tile takes 33-64 keys, 6 heads at batch 1 (672_S's smallest grid), NaN
+# past kv_len, q scaled x8 (scores over a wide range, rows led by a few keys,
+# for the exponentials split between the SFU and the FMA pipe), and a
+# negative softmax scale (the kernel takes the max of the raw scores)
+K1_CASES = ([(torch.bfloat16, n, kv, 4, 2, 100.0, 1.0, None)
+             for n, kv in ((4104, 4097), (8472, 8465), (1032, 1024), (1088, 1065))]
+            + [(torch.bfloat16, 2312, 2305, 6, 1, 100.0, 1.0, None),
+               (torch.bfloat16, 4104, 4097, 4, 2, float("nan"), 1.0, None),
+               (torch.bfloat16, 2312, 2305, 4, 2, 100.0, 8.0, None),
+               (torch.bfloat16, 4104, 4097, 4, 2, float("nan"), 8.0, None),
+               (torch.bfloat16, 2312, 2305, 4, 2, 100.0, 1.0, -0.125)])
 
 
-@pytest.mark.parametrize("dtype,n,kv_len", FLASH_CASES)
-def test_flash_attention_kernel(dev, dtype, n, kv_len):
+@pytest.mark.parametrize("dtype,n,kv_len,heads,batch,junk,q_scale,scale",
+                         [(*c, 4, 2, 100.0, 1.0, None) for c in FLASH_CASES] + K1_CASES)
+def test_flash_attention_kernel(dev, dtype, n, kv_len, heads, batch, junk, q_scale, scale):
     g = torch.Generator(device=dev).manual_seed(0)
-    qkv = torch.randn((2, 3 * 4 * 64, n), device=dev, generator=g).to(dtype)
+    qkv = torch.randn((batch, 3 * heads * 64, n), device=dev, generator=g)
+    qkv[:, :heads * 64] *= q_scale
+    qkv = qkv.to(dtype)
     if kv_len is not None:
-        qkv[..., kv_len:] = 100.0  # junk past kv_len
-    q, k, v = qkv.reshape(2, 3, 4, 64, n).unbind(1)  # strided views, as in the ViT
+        qkv[..., kv_len:] = junk
+    q, k, v = qkv.reshape(batch, 3, heads, 64, n).unbind(1)  # strided views, as in the ViT
     cuda_lib.reset_launches()
-    out, lse = attention._flash_fwd_impl_t(q, k, v, kv_len=kv_len)
+    out, lse = attention._flash_fwd_impl_t(q, k, v, scale=scale, kv_len=kv_len)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES[attention.KERNEL] == 1
-    ref_out, ref_lse = attention.mha_reference_t(q, k, v, kv_len=kv_len)
-    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (2, 4, n)
+    # the plain version multiplies masked keys' v by 0: it gets zeros where
+    # the kernel got NaN (nan_to_num leaves finite inputs as they are)
+    ref_out, ref_lse = attention.mha_reference_t(*(t.nan_to_num(0.0) for t in (q, k, v)),
+                                                 scale=scale, kv_len=kv_len)
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (batch, heads, n)
     lim = n if kv_len is None else kv_len
     _check_fwd(out[..., :lim], lse[..., :lim], ref_out[..., :lim], ref_lse[..., :lim])
+
+
+def test_poly_exp2_error(dev, tmp_path):
+    """The exponentials K1 runs on the FMA pipe (common.cuh poly_exp2) stay
+    within 2^-12 of 2^x: P.V rounds P to bf16 (2^-9) in any case."""
+    from multihmr_tpu_torch.tools.kernel_timing import poly_exp2_error
+
+    errs = poly_exp2_error(tmp_path)
+    assert max(errs.values()) <= 2.0 ** -12, errs
 
 
 @pytest.mark.parametrize("entry", ["K1", "K3", "K4a", "K4b"])

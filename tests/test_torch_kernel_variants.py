@@ -35,7 +35,9 @@ def test_mutant_counts():
 
 
 def test_variant_tables_cover_each_kernel():
-    """kernel_timing's ablations: K5 without each of its S product, P.V,
+    """kernel_timing's ablations: K1 without each of its S product, P.V,
+    exp2, TMA copies and ping-pong, with accurate exp2f, and with every exp2
+    on the SFU; K5 without each of its S product, P.V,
     exp2 and copies; K2 without its variance pass and its stores; K4a
     (mode 1) and K4b (mode 2) without each of their S, dP and output
     products, their exp2 and their copies, K3 (mode 0) also without its dq
@@ -44,6 +46,10 @@ def test_variant_tables_cover_each_kernel():
     for (source, _, modes), table in kernel_timing.VARIANTS.items():
         for mode in modes or (None,):
             tables.setdefault((source, mode), set()).update(table)
+    assert tables[("flash_fwd.cu", None)] == {
+        "no S = q k^T product", "no P.V product", "no exp2", "exp2f (accurate) for ex2.approx",
+        "exp2 all on the SFU", "no ping-pong between the consumer warpgroups",
+        "no k/v copies after the first kStages tiles"}
     assert {"no S = q k^T product", "no P.V product", "no exp2",
             "no k/v copies after the first kStages tiles"} <= tables[("flash_fwd_std.cu", None)]
     assert tables[("layernorm_cm.cu", None)] == {"no variance pass", "no stores"}
@@ -75,7 +81,7 @@ def test_build_variants_refuses_a_missing_site(tmp_path):
         cuda_lib.build_variants("flash_fwd.cu", {"x": [("no such text", "")]}, tmp_path)
 
 
-@pytest.mark.parametrize("argv", [["variants"], ["forward"], ["ab", "."], ["ptxas"]])
+@pytest.mark.parametrize("argv", [["variants"], ["forward"], ["ab", "."], ["ptxas"], ["exp2"]])
 def test_kernel_timing_needs_a_card(argv, capsys, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     assert kernel_timing.main(argv) == 2
