@@ -25,7 +25,10 @@ card. Phases, one line each:
      lengths, and at batch 2 (the training path's shape);
   4. K2 (channels-major LayerNorm) against its plain version at the
      channels-major stream's shapes ([1, 1024, N] for N = 2,312, 4,104 and
-     8,472, and [2, 1024, 4104]), bf16 and fp32; an odd N raises;
+     8,472, and [2, 1024, 4104]), and its wide path (``layernorm_cm_wide``)
+     at ViT-g/14's [1, 1536, 4104] and [8, 1536, 4104] and at [1, 1056,
+     4104] (the last warp's second group of 32 channels absent), bf16 and
+     fp32; an odd N raises;
   5. multiHMR_672_S in fp32 (LayerScale 0.5, so that the blocks move the
      stream): the card (kernels) against the CPU (plain versions), same
      weights and image, with 12 K1 and 24 K2 launches;
@@ -222,9 +225,17 @@ card. Phases, one line each:
      memory). Cut to fit the script's time: ``latency_stats`` chains of 4
      and 8 forwards, 3 repeats.
 
+ 23. ``multiHMR_896_G`` (DINOv2 ViT-g/14: 40 blocks of 1,536, a SwiGLU FFN;
+     ``port_config.py``) in bf16 through ``folder_inference`` at batch 8
+     over 8 images of the folder cells' four sizes, after one warm-up call:
+     40 K1 and 80 K2 launches per batch, all 80 on K2's wide path, counted
+     from 0 just before the call; finite outputs; K2's wide path timed at
+     [1, 1536, 4104] as phase 7 times the narrow one.
+
 Then a JSON line of the kernels (each with ``artifact_launches``, its
 launches per 672_B batch through phase 19's artifacts; ``launches`` adds
-phase 21's, all ranks, and phase 22's), the nvidia-smi
+phase 21's, all ranks, and phase 22's; K2's wide path is its own entry,
+``layernorm_cm_wide``, with phase 23's launches), the nvidia-smi
 line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those.
 Exits non-zero at once without a CUDA card.
@@ -245,7 +256,7 @@ import torch
 
 from multihmr_tpu_torch.tools.kernel_timing import (MUTANTS, bound_ms, log, qkv_views,
                                                     std_qkv_views, time_bwd, time_forward,
-                                                    time_k5)
+                                                    time_k2, time_k5)
 from multihmr_tpu_torch.utils.profiling import cuda_ms, device_line
 
 # flash forward (K1, K5) against its plain version, computed in fp32 from the
@@ -344,15 +355,19 @@ def check_k1(attention):
 # K2's cases (batch, N): the channels-major stream's pre-padded token counts
 # at 672, 896 and 1288 px, and 896 px at the training batch; its dtype pairs
 K2_CASES = [(1, 2312), (1, 4104), (1, 8472), (2, 4104)]
+# its wide path (batch, D, N): ViT-g/14's stream at batch 1 and at the
+# folder cell's batch 8, and D = 1056, where the last warp owns one group of
+# 32 channels and not two
+K2_WIDE_CASES = [(1, 1536, 4104), (8, 1536, 4104), (1, 1056, 4104)]
 K2_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
              (torch.float32, torch.float32)]
 
 
-def k2_inputs(batch, n, seed=1):
+def k2_inputs(batch, n, seed=1, d=1024):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((batch, 1024, n), device="cuda", generator=g) * 2 + 0.5
-    scale = 1 + 0.1 * torch.randn(1024, device="cuda", generator=g)
-    bias = 0.1 * torch.randn(1024, device="cuda", generator=g)
+    x = torch.randn((batch, d, n), device="cuda", generator=g) * 2 + 0.5
+    scale = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(d, device="cuda", generator=g)
     return x, scale, bias
 
 
@@ -376,17 +391,22 @@ def k2_cases(norm, x, scale, bias):
 
 
 def check_k2(norm):
-    """K2 at the stream's shapes; returns the max abs bf16->bf16 error at
-    [B, 1024, 4104], B = 1 and 2 (the 896_L shapes)."""
-    worst = 0.0
-    for batch, n in K2_CASES:
-        x, scale, bias = k2_inputs(batch, n)
+    """K2 at the stream's shapes, its wide path at ViT-g/14's; returns the
+    max abs bf16->bf16 error of each kernel ({name: error}): at [B, 1024,
+    4104], B = 1 and 2 (the 896_L shapes), and at [B, 1536, 4104], B = 1
+    and 8 (the 896_G shapes)."""
+    worst = {norm.KERNEL: 0.0, norm.KERNEL_WIDE: 0.0}
+    cases = [(b, 1024, n) for b, n in K2_CASES] + K2_WIDE_CASES
+    for batch, d, n in cases:
+        x, scale, bias = k2_inputs(batch, n, d=d)
         for pair, ok, err, text in k2_cases(norm, x, scale, bias):
-            log(4, f"K2 [{batch},1024,{n}] {pair}: {text} {'ok' if ok else 'FAIL'}")
+            log(4, f"K2 [{batch},{d},{n}] {pair}: {text} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("K2 disagrees with its plain version")
-            if n == 4104 and pair == "bfloat16->bfloat16":
-                worst = max(worst, err)
+            if n == 4104 and d in (1024, 1536) and pair == "bfloat16->bfloat16":
+                name = norm.KERNEL if d == 1024 else norm.KERNEL_WIDE
+                worst[name] = max(worst[name], err)
+        del x, scale, bias
     x = torch.zeros((1, 1024, 4097), device="cuda", dtype=torch.bfloat16)
     s = torch.ones(1024, device="cuda")
     try:
@@ -4117,6 +4137,56 @@ def run_tools(build_model, named_config, cuda_lib, attention, norm, card, tmp):
     return figures, launches
 
 
+# phase 23: DINOv2 ViT-g/14 on the folder path, 8 images of the folder
+# cells' four sizes (h, w), and its launches a batch of 8: K1 one a block,
+# K2 two a block, all on its wide path (D = 1,536)
+VITG = "multiHMR_896_G"
+VITG_SIZES = [(480, 640), (720, 1280), (1080, 1920), (600, 900)] * 2
+VITG_LAUNCHES = (40, 80, 80)
+
+
+def run_vitg(build_model, cast_backbone_bf16, cuda_lib, attention, norm, card):
+    """Phase 23: ``multiHMR_896_G`` in bf16 through ``folder_inference`` at
+    batch 8, after one warm-up call; K1, K2 and K2-wide launches counted from
+    0 just before the counted call, then the outputs of one forward of the
+    same batch checked finite. Returns (wide launches, K2 wide times)."""
+    from multihmr_tpu_torch.io.preprocessing import preprocess_array
+    from multihmr_tpu_torch.parallel.infer import folder_inference
+
+    t = time.perf_counter()
+    model = build_model(VITG, device="cuda", seed=0)
+    cast_backbone_bf16(model.net)
+    built = time.perf_counter() - t
+    S = model.cfg.img_size
+    pres = [preprocess_array(synthetic_image(300 + i, *hw), S) for i, hw in enumerate(VITG_SIZES)]
+    images = [p.x for p in pres]
+    Ks = np.stack([p.K for p in pres])
+    folder_inference(model, images, Ks, det_thresh=0.3, batch_size=8)  # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()  # the counted folder run starts here
+    t = time.perf_counter()
+    got = folder_inference(model, images, Ks, det_thresh=0.3, batch_size=8)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = tuple(cuda_lib.LAUNCHES[k] for k in (attention.KERNEL, norm.KERNEL,
+                                                    norm.KERNEL_WIDE))  # read just after it
+    with torch.inference_mode():
+        out = model.forward(torch.from_numpy(np.stack(images)).cuda(), torch.from_numpy(Ks).cuda())
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values()
+                 if torch.is_tensor(v) and v.is_floating_point())
+    ok = launches == VITG_LAUNCHES and finite
+    log(23, f"{VITG} bf16 through folder_inference, batch 8 (built in {built:.1f} s): "
+            f"{sum(len(g) for g in got)} persons, {wall:.1f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches K1/K2/K2 wide "
+            f"{launches} (want {VITG_LAUNCHES}); outputs finite={finite} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError(f"{VITG} main path check failed")
+    del model, out, got
+    torch.cuda.empty_cache()
+    return launches[2], time_k2(norm, card, D=1536, phase=23)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4197,10 +4267,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         tools = phase(22, run_tools, build_model, named_config, cuda_lib, attention, norm, card,
                       tmp)
+        torch.cuda.empty_cache()
+        vitg = phase(23, run_vitg, build_model, cast_backbone_bf16, cuda_lib, attention, norm,
+                     card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failed or None in (fwd, bwd_check, train, bwd, k5_err, mutants, k5_times, fwd_streams,
-                          cli_launches, ref, anny, serving, exported, io_figures, par, tools):
+                          cli_launches, ref, anny, serving, exported, io_figures, par, tools,
+                          vitg):
         log("end", f"failed phases: {failed}")
         return 1
     launches, steps = train
@@ -4212,6 +4286,7 @@ def main() -> int:
     tool_figures, tool_launches = tools
     for name, count in tool_launches.items():  # phase 22's tools
         launches[name] = launches.get(name, 0) + count
+    launches[norm.KERNEL_WIDE], k2_wide_times = vitg  # phase 23's folder run
     for label, (ms, peak) in steps.items():
         log("end", f"896_L bf16 train step, batch 2, {label}: {ms:.1f} ms, peak memory "
                    f"{peak:.2f} GiB [{card}]")
@@ -4277,7 +4352,9 @@ def main() -> int:
 
     kernels = [
         entry(attention.KERNEL, "flash_fwd.cu", "attention.py:399", k1_err, fwd["k1"]),
-        entry(norm.KERNEL, "layernorm_cm.cu", "norm.py:26", k2_err, fwd["k2"]),
+        entry(norm.KERNEL, "layernorm_cm.cu", "norm.py:26", k2_err[norm.KERNEL], fwd["k2"]),
+        entry(norm.KERNEL_WIDE, "layernorm_cm.cu", "norm.py:26", k2_err[norm.KERNEL_WIDE],
+              k2_wide_times),
         entry(attention.KERNEL_BWD, "flash_bwd.cu", "attention.py:738", bwd_err["K3"],
               bwd[attention.KERNEL_BWD]),
         entry(attention.KERNEL_BWD_DQ, "flash_bwd.cu", "attention.py:627", bwd_err["K4a"],

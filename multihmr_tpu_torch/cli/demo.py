@@ -41,7 +41,9 @@ through PIL, as in the JAX demo. The overlay opens the original image.
 
 An Anny-family name (``multiHMR_672_L_anny``) runs ``MultiHMRAnny`` with the
 demo's FOV-``--fov`` K, so its persons' ``K`` is that K (``K_regressed`` and
-``fov`` are the network's own).
+``fov`` are the network's own). ``multiHMR_896_G`` runs the port's own
+ViT-g/14 configuration (``port_config.py``), for which no released
+checkpoint exists: seeded weights, or a ``--ckpt`` in the hub's naming.
 """
 
 from __future__ import annotations

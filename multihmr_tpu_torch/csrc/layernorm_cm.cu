@@ -27,6 +27,17 @@
 // a [warps][32] buffer in shared memory. Each thread loads the scale and
 // bias of its own channels once, and writes y once with 16-byte stores in
 // the output dtype (8-byte stores for fp32 in and bf16 out: 4 tokens).
+//
+// Wide path (1024 < D <= 2048, D a multiple of 32; DINOv2 ViT-g/14's
+// D = 1536): a block holds at most 32 warps, so each warp owns two groups
+// of 32 channels, w and w + W (W = ceil(D / 64) warps: 768 threads at
+// D = 1536), the second absent in the last warp where D / 32 is odd. It is
+// a separate instantiation of the same tile code, picked at launch, with
+// the same loads-first order and two-pass fp32 statistics; a thread then
+// holds twice the tile in registers, so it reads its channels' scale and
+// bias at the store instead of holding them across the variance pass. At
+// D = 1536 bf16 one call of the 896 px stream moves 2 * 1536 * 4104 * 2 B =
+// 25.2 MB a batch element.
 #include "common.cuh"
 
 namespace mhmr {
@@ -34,6 +45,8 @@ namespace {
 
 constexpr int kTok = 32;       // token columns per block
 constexpr int kMaxWarps = 32;  // D / 32 warps, D <= 1024
+constexpr int kWideGroups = 2;  // wide path: two groups of 32 channels a warp
+constexpr int kMaxWideD = 32 * kWideGroups * kMaxWarps;  // 2048
 
 // the lane layout of one 16-byte load of an In tile row
 template <typename In>
@@ -104,12 +117,15 @@ __device__ __forceinline__ void block_sum(float (&acc)[V], float (*red)[kTok], f
   for (int t = 0; t < V; ++t) acc[t] = tot[chunk * V + t];
 }
 
-template <typename In, typename Out>
-__global__ void __launch_bounds__(32 * kMaxWarps, 1)
-layernorm_cm_kernel(const typename In::T* __restrict__ x,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias,
-                    typename Out::T* __restrict__ y, int D, int N, float eps) {
+// One block's tile of kTok tokens across all D channels. kGroups: the
+// groups of 32 channels a warp owns, w, w + W, ... (W = blockDim.x / 32
+// warps); a group at or past D is absent (zeros, left out of the sums).
+template <typename In, typename Out, int kGroups>
+__device__ __forceinline__ void layernorm_cm_tile(const typename In::T* __restrict__ x,
+                                                  const float* __restrict__ scale,
+                                                  const float* __restrict__ bias,
+                                                  typename Out::T* __restrict__ y, int D, int N,
+                                                  float eps) {
   using L = Tile<In>;
   constexpr int V = L::kVec;
   __shared__ float red[kMaxWarps][kTok];
@@ -120,51 +136,69 @@ layernorm_cm_kernel(const typename In::T* __restrict__ x,
   const int n_warps = blockDim.x / 32;
   const int n = blockIdx.x * kTok + (lane % L::kLanesPerCh) * V;  // this lane's first token
   const bool in_range = n < N;  // N % V == 0: all V tokens or none
-  const int c0 = 32 * warp + lane / L::kLanesPerCh;  // load i: channel c0 + i * kChPerLoad
+  // group g, load i: channel c0[g] + i * kChPerLoad
+  int c0[kGroups];
+  bool has[kGroups];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    c0[g] = 32 * (warp + g * n_warps) + lane / L::kLanesPerCh;
+    has[g] = kGroups == 1 || 32 * (warp + g * n_warps) < D;
+  }
   const long long plane = static_cast<long long>(blockIdx.y) * D * N;
 
   // every load first: 16 bytes of one channel row each
-  uint4 raw[L::kLoads];
+  uint4 raw[kGroups][L::kLoads];
 #pragma unroll
-  for (int i = 0; i < L::kLoads; ++i) {
-    const long long off = plane + static_cast<long long>(c0 + i * L::kChPerLoad) * N + n;
-    raw[i] = in_range ? __ldg(reinterpret_cast<const uint4*>(x + off)) : make_uint4(0, 0, 0, 0);
-  }
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int i = 0; i < L::kLoads; ++i) {
+      const long long off = plane + static_cast<long long>(c0[g] + i * L::kChPerLoad) * N + n;
+      raw[g][i] = in_range && has[g] ? __ldg(reinterpret_cast<const uint4*>(x + off))
+                                     : make_uint4(0, 0, 0, 0);
+    }
 
-  // mean
+  // mean (an absent group's zeros add nothing)
   float acc[V], mu[V];
 #pragma unroll
   for (int t = 0; t < V; ++t) acc[t] = 0.f;
 #pragma unroll
-  for (int i = 0; i < L::kLoads; ++i) {
-    float v[V];
-    unpack<In>(raw[i], v);
+  for (int g = 0; g < kGroups; ++g)
 #pragma unroll
-    for (int t = 0; t < V; ++t) acc[t] += v[t];
-  }
+    for (int i = 0; i < L::kLoads; ++i) {
+      float v[V];
+      unpack<In>(raw[g][i], v);
+#pragma unroll
+      for (int t = 0; t < V; ++t) acc[t] += v[t];
+    }
   block_sum<V, L::kLanesPerCh>(acc, red, tot, warp, lane, n_warps);
 #pragma unroll
   for (int t = 0; t < V; ++t) mu[t] = acc[t] / D;
 
-  // this thread's channels' scale and bias, once
+  // one group: this thread's channels' scale and bias, once
   float sc[L::kLoads], bi[L::kLoads];
+  if constexpr (kGroups == 1) {
 #pragma unroll
-  for (int i = 0; i < L::kLoads; ++i) {
-    sc[i] = __ldg(scale + c0 + i * L::kChPerLoad);
-    bi[i] = __ldg(bias + c0 + i * L::kChPerLoad);
+    for (int i = 0; i < L::kLoads; ++i) {
+      sc[i] = __ldg(scale + c0[0] + i * L::kChPerLoad);
+      bi[i] = __ldg(bias + c0[0] + i * L::kChPerLoad);
+    }
   }
 
   // variance of the centred values
 #pragma unroll
   for (int t = 0; t < V; ++t) acc[t] = 0.f;
 #pragma unroll
-  for (int i = 0; i < L::kLoads; ++i) {
-    float v[V];
-    unpack<In>(raw[i], v);
+  for (int g = 0; g < kGroups; ++g) {
+    if (!has[g]) continue;
 #pragma unroll
-    for (int t = 0; t < V; ++t) {
-      const float d = v[t] - mu[t];
-      acc[t] = fmaf(d, d, acc[t]);
+    for (int i = 0; i < L::kLoads; ++i) {
+      float v[V];
+      unpack<In>(raw[g][i], v);
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        const float d = v[t] - mu[t];
+        acc[t] = fmaf(d, d, acc[t]);
+      }
     }
   }
   block_sum<V, L::kLanesPerCh>(acc, red, tot, warp, lane, n_warps);
@@ -174,28 +208,66 @@ layernorm_cm_kernel(const typename In::T* __restrict__ x,
   // normalise, affine, cast, store
   if (in_range) {
 #pragma unroll
-    for (int i = 0; i < L::kLoads; ++i) {
-      float v[V];
-      unpack<In>(raw[i], v);
+    for (int g = 0; g < kGroups; ++g) {
+      if (!has[g]) continue;
 #pragma unroll
-      for (int t = 0; t < V; ++t) v[t] = fmaf((v[t] - mu[t]) * acc[t], sc[i], bi[i]);
-      const long long off = plane + static_cast<long long>(c0 + i * L::kChPerLoad) * N + n;
-      store<Out, V>(y + off, v);
+      for (int i = 0; i < L::kLoads; ++i) {
+        const int c = c0[g] + i * L::kChPerLoad;
+        float s_c, b_c;
+        if constexpr (kGroups == 1) {
+          s_c = sc[i];
+          b_c = bi[i];
+        } else {
+          s_c = __ldg(scale + c);
+          b_c = __ldg(bias + c);
+        }
+        float v[V];
+        unpack<In>(raw[g][i], v);
+#pragma unroll
+        for (int t = 0; t < V; ++t) v[t] = fmaf((v[t] - mu[t]) * acc[t], s_c, b_c);
+        const long long off = plane + static_cast<long long>(c) * N + n;
+        store<Out, V>(y + off, v);
+      }
     }
   }
+}
+
+// D <= 1024: one group a warp, D / 32 warps
+template <typename In, typename Out>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
+layernorm_cm_kernel(const typename In::T* __restrict__ x,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    typename Out::T* __restrict__ y, int D, int N, float eps) {
+  layernorm_cm_tile<In, Out, 1>(x, scale, bias, y, D, N, eps);
+}
+
+// 1024 < D <= 2048: two groups a warp, ceil(D / 64) warps
+template <typename In, typename Out>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
+layernorm_cm_wide_kernel(const typename In::T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias,
+                         typename Out::T* __restrict__ y, int D, int N, float eps) {
+  layernorm_cm_tile<In, Out, kWideGroups>(x, scale, bias, y, D, N, eps);
 }
 
 template <typename In, typename Out>
 cudaError_t launch(const void* x, const float* scale, const float* bias, void* y, int B, int D,
                    int N, float eps, cudaStream_t stream) {
-  // 16-byte channel rows of x and y, one warp per 32 channels
-  if (D % 32 || D < 32 || D > 32 * kMaxWarps || (N * sizeof(typename In::T)) % 16 ||
+  // 16-byte channel rows of x and y, one warp per 32 channels (two past 1024)
+  if (D % 32 || D < 32 || D > kMaxWideD || (N * sizeof(typename In::T)) % 16 ||
       (N * sizeof(typename Out::T)) % 16 || !is_aligned16(x) || !is_aligned16(y))
     return cudaErrorInvalidValue;
   dim3 grid((N + kTok - 1) / kTok, B);
-  layernorm_cm_kernel<In, Out><<<grid, D, 0, stream>>>(
-      static_cast<const typename In::T*>(x), scale, bias, static_cast<typename Out::T*>(y), D, N,
-      eps);
+  const auto* xi = static_cast<const typename In::T*>(x);
+  auto* yo = static_cast<typename Out::T*>(y);
+  if (D <= 32 * kMaxWarps)
+    layernorm_cm_kernel<In, Out><<<grid, D, 0, stream>>>(xi, scale, bias, yo, D, N, eps);
+  else
+    layernorm_cm_wide_kernel<In, Out>
+        <<<grid, 32 * ((D / 32 + kWideGroups - 1) / kWideGroups), 0, stream>>>(
+            xi, scale, bias, yo, D, N, eps);
   return cudaGetLastError();
 }
 
@@ -204,7 +276,7 @@ cudaError_t launch(const void* x, const float* scale, const float* bias, void* y
 
 // Returns cudaErrorInvalidValue for inputs the kernel does not take (the
 // Python wrapper checks the same and raises first): D not a multiple of 32
-// in [32, 1024], a channel row of x or y that is not a multiple of 16
+// in [32, 2048], a channel row of x or y that is not a multiple of 16
 // bytes, or a base pointer that is not 16-byte aligned.
 extern "C" int mhmr_layernorm_cm(const void* x, const void* scale,
                                  const void* bias, void* y, int B, int D,

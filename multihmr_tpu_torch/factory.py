@@ -1,7 +1,8 @@
 """Build a ready-to-run MultiHMR (``multihmr_tpu/factory.py``).
 
-The six SMPL-X configurations of ``named_config``, and the Anny family (a
-name holding "anny": ``anny_config``, ``MultiHMRAnny``). With a reference
+The six SMPL-X configurations of ``named_config``, the port-only SMPL-X
+configuration ``multiHMR_896_G`` (DINOv2 ViT-g/14, ``port_config.py``), and
+the Anny family (a name holding "anny": ``anny_config``, ``MultiHMRAnny``). With a reference
 ``multiHMR_*.pt`` (``checkpoint``) the weights are the file's, converted by
 ``io/checkpoint.py::convert_reference_checkpoint`` (``_anny``). Without one
 they are random, drawn on the CPU from ``torch.Generator().manual_seed(seed)``
@@ -27,11 +28,20 @@ from multihmr_tpu_torch.bodymodel.assets import load_smplx_npz, smplx_like_synth
 from multihmr_tpu_torch.bodymodel.core import BodyModel
 from multihmr_tpu_torch.models.multihmr import MultiHMR, MultiHMRNet
 from multihmr_tpu_torch.models.multihmr_anny import AnnyConfig, MultiHMRAnny, MultiHMRAnnyNet
+from multihmr_tpu_torch.port_config import CONFIGS as PORT_CONFIGS
 
 SMPLX_NAMES = (
     "multiHMR_896_L", "multiHMR_672_L", "multiHMR_672_B", "multiHMR_672_S",
     "multiHMR_1288_L_bedlam", "multiHMR_1288_L_agora",
-)
+) + tuple(PORT_CONFIGS)
+
+
+def smplx_config(name: str):
+    """The configuration of an SMPL-X name: ``named_config``'s, or the
+    port's own (``port_config.CONFIGS``)."""
+    if name not in SMPLX_NAMES:
+        raise KeyError(f"{name!r} is not a ported configuration; known: {SMPLX_NAMES}")
+    return PORT_CONFIGS[name] if name in PORT_CONFIGS else named_config(name)
 
 
 def smplx_dir() -> str:
@@ -112,9 +122,7 @@ def build_model(name: str = "multiHMR_896_L", device="cuda", seed: int = 0,
         return MultiHMRAnny(cfg, load_anny_model(device), net=net.to(device).eval(),
                             tp_mode=tp_mode, mesh=mesh)
     if cfg is None:
-        if name not in SMPLX_NAMES:
-            raise KeyError(f"{name!r} is not a ported configuration; known: {SMPLX_NAMES}")
-        cfg = named_config(name)
+        cfg = smplx_config(name)
     state = None if checkpoint is None else ckpt.convert_reference_checkpoint(checkpoint, cfg)
     net = _on_mesh(MultiHMRNet, cfg, tp_mode, _net(MultiHMRNet, cfg, tp_mode, seed, state), mesh)
     bm = load_body_model(device, cfg.num_betas)
@@ -127,9 +135,7 @@ def build_host_model(name: str) -> MultiHMR:
     the host, for reading the persons back and for the overlay's faces, and
     a net on the meta device, which holds no weights: the artifact carries
     them, so the card holds them once."""
-    if name not in SMPLX_NAMES:
-        raise KeyError(f"{name!r} is not a ported SMPL-X configuration; known: {SMPLX_NAMES}")
-    cfg = named_config(name)
+    cfg = smplx_config(name)
     with torch.device("meta"):
         net = MultiHMRNet(cfg)
     return MultiHMR(cfg, load_body_model("cpu", cfg.num_betas), net=net)

@@ -41,6 +41,8 @@ import torch
 from multihmr_tpu_torch.config import ModelConfig
 from multihmr_tpu_torch.io.convert import params_from_jax, params_from_jax_anny
 from multihmr_tpu_torch.ops.posenc import interpolate_dinov2_pos_embed
+from multihmr_tpu_torch.port_config import BACKBONES as PORT_BACKBONES
+from multihmr_tpu_torch.port_config import ffn_hidden, ffn_kind
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
 _STATE = re.compile(r"state_(\d+)\.pt$")
@@ -143,8 +145,10 @@ def config_from_ckpt_args(args: Mapping[str, Any], max_people: int = 16) -> Mode
     img_size = get("img_size", 896)
     if isinstance(img_size, (list, tuple)):  # stored as a list (reference demo.py:99)
         img_size = img_size[0]
+    backbone = get("backbone", "dinov2_vitb14")
     return ModelConfig(
-        backbone=get("backbone", "dinov2_vitb14"),
+        backbone=backbone,
+        vit_override=PORT_BACKBONES.get(backbone),
         img_size=int(img_size),
         camera_embedding_num_bands=int(get("camera_embedding_num_bands", 16)),
         camera_embedding_max_resolution=int(get("camera_embedding_max_resolution", 64)),
@@ -162,6 +166,18 @@ def _t(w: np.ndarray) -> np.ndarray:
     """torch Linear weight [out, in] → the JAX tree's kernel [in, out], as a
     view: ``params_from_jax`` transposes it back."""
     return w.T
+
+
+def ffn_shapes(vit) -> dict:
+    """The hub names and torch-side shapes of a ViT block's FFN: the GELU
+    MLP's ``mlp.fc1``/``mlp.fc2``, or DINOv2's fused SwiGLU ``mlp.w12``
+    (both halves, ``[2 hidden, D]``) and ``mlp.w3``."""
+    D, H = vit.embed_dim, ffn_hidden(vit)
+    if ffn_kind(vit) == "swiglufused":
+        return {"mlp.w12.weight": (2 * H, D), "mlp.w12.bias": (2 * H,),
+                "mlp.w3.weight": (D, H), "mlp.w3.bias": (D,)}
+    return {"mlp.fc1.weight": (H, D), "mlp.fc1.bias": (H,),
+            "mlp.fc2.weight": (D, H), "mlp.fc2.bias": (D,)}
 
 
 def expected_reference_keys(cfg: ModelConfig) -> set:
@@ -182,9 +198,8 @@ def expected_reference_keys(cfg: ModelConfig) -> set:
             b + "attn.proj.weight", b + "attn.proj.bias",
             b + "ls1.gamma", b + "ls2.gamma",
             b + "norm2.weight", b + "norm2.bias",
-            b + "mlp.fc1.weight", b + "mlp.fc1.bias",
-            b + "mlp.fc2.weight", b + "mlp.fc2.bias",
         }
+        keys |= {b + k for k in ffn_shapes(cfg.vit)}
     for m in ("mlp_classif", "mlp_offset"):
         keys |= {f"{m}.0.weight", f"{m}.0.bias", f"{m}.2.weight", f"{m}.2.bias"}
     xa = "x_attention_head."
@@ -221,7 +236,6 @@ def expected_reference_shapes(cfg: ModelConfig) -> dict:
     otherwise pass the reshapes and give wrong weights."""
     vit = cfg.vit
     D = vit.embed_dim
-    H = int(D * vit.mlp_ratio)
     hph = cfg.hph
     inner = hph.heads * hph.dim_head
     C = D + cfg.camera_embed_dim
@@ -245,10 +259,7 @@ def expected_reference_shapes(cfg: ModelConfig) -> dict:
         shapes[b + "attn.proj.bias"] = (D,)
         shapes[b + "ls1.gamma"] = (D,)
         shapes[b + "ls2.gamma"] = (D,)
-        shapes[b + "mlp.fc1.weight"] = (H, D)
-        shapes[b + "mlp.fc1.bias"] = (H,)
-        shapes[b + "mlp.fc2.weight"] = (D, H)
-        shapes[b + "mlp.fc2.bias"] = (D,)
+        shapes.update({b + k: v for k, v in ffn_shapes(vit).items()})
     for m, od in (("mlp_classif", 1), ("mlp_offset", 2)):
         shapes[f"{m}.0.weight"] = (D, D)
         shapes[f"{m}.0.bias"] = (D,)
@@ -453,12 +464,10 @@ def jax_tree_from_reference(ckpt_or_path, cfg: ModelConfig) -> dict:
             },
             "ls1": {"gamma": stacked("ls1.gamma")},
             "norm2": {"scale": stacked("norm2.weight"), "bias": stacked("norm2.bias")},
-            "mlp": {
-                "fc1": {"kernel": stacked("mlp.fc1.weight", True),
-                        "bias": stacked("mlp.fc1.bias")},
-                "fc2": {"kernel": stacked("mlp.fc2.weight", True),
-                        "bias": stacked("mlp.fc2.bias")},
-            },
+            # fc1/fc2, or the SwiGLU's w12/w3 (no JAX counterpart: the port's names)
+            "mlp": {name: {"kernel": stacked(f"mlp.{name}.weight", True),
+                           "bias": stacked(f"mlp.{name}.bias")}
+                    for name in dict.fromkeys(k.split(".")[1] for k in ffn_shapes(vit))},
             "ls2": {"gamma": stacked("ls2.gamma")},
         }
     }

@@ -30,6 +30,13 @@ changes outside tests.
 Both streams have the same parameter names (those of the reference
 checkpoints) and draw the same seeded init in the same order.
 
+The block's FFN is the ViT config's ``ffn_layer`` (``port_config.py``):
+the GELU MLP (``fc1``, ``fc2``) of every Multi-HMR checkpoint, or DINOv2's
+fused SwiGLU (``w12``, ``w3``) of ViT-g/14: ``x1, x2 = w12(x).chunk(2)``
+along the channels, ``w3(silu(x1) * x2)``, biases on both, in the stream's
+dtype. The SwiGLU runs under the span ``multihmr.ffn`` (nested in
+``multihmr.vit``); the GELU MLP has no span of its own.
+
 Precision follows the JAX package: matmuls and the stream in
 ``dtype`` (bf16 by default), LayerNorm statistics in fp32, GELU exact (erf)
 in fp32 and tanh-approximate in bf16, and an fp32 final LayerNorm.
@@ -45,7 +52,9 @@ rank per device, parallel/sharding.py):
     ``[B, 3, H/P, Dh, N]``, the K1 operand view, with no copy (the qkv rows
     follow the heads, ``shard_state_dict``); the row-parallel proj sums its
     partial products over ``model`` and adds its bias once; the MLP pairs
-    fc1 (column) with fc2 (row) the same way. The stream stays replicated,
+    fc1 (column) with fc2 (row) the same way, the SwiGLU w12 (column: the
+    rank's rows of each half, so its chunks are matching slices of x1 and
+    x2) with w3 (row). The stream stays replicated,
     so K2 runs twice per block on every rank, and K1 once over ``H/P`` heads;
   * "ring": the standard stream is padded to a multiple of ``P`` tokens and
     each rank keeps its sequence shard through all the blocks (the weights
@@ -85,6 +94,8 @@ from multihmr_tpu_torch.ops.norm import layernorm_cm
 from multihmr_tpu_torch.parallel import comm
 from multihmr_tpu_torch.parallel.ring_attention import ring_attention
 from multihmr_tpu_torch.parallel.sharding import axis_group
+from multihmr_tpu_torch.port_config import ffn_hidden, ffn_kind
+from multihmr_tpu_torch.utils.profiling import span
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -187,6 +198,26 @@ class TMlp(nn.Module):
         return self.fc2(_gelu(self.fc1(x)))
 
 
+class TSwiGLU(nn.Module):
+    """DINOv2's fused SwiGLU FFN on ``[B, D, N]``; ``w12``'s output rows are
+    the two halves ``x1`` (gated by SiLU) and ``x2``, each ``hidden`` wide
+    (``hidden / P`` on a rank of tensor parallelism)."""
+
+    def __init__(self, dim: int, hidden: int, group=None):
+        super().__init__()
+        p = _tp_size(group)
+        self.group = group
+        self.w12 = TLinear(dim, 2 * hidden // p)
+        self.w3 = TLinear(hidden // p, dim, reduce_group=group)
+
+    def forward(self, x):
+        with span("ffn"):
+            if self.group is not None:
+                x = comm.copy_to_model(x, self.group)
+            x1, x2 = self.w12(x).chunk(2, dim=1)
+            return self.w3(F.silu(x1) * x2)
+
+
 class TBlock(nn.Module):
     def __init__(self, cfg: ViTConfig, remat_mlp: bool = False, group=None):
         super().__init__()
@@ -196,7 +227,8 @@ class TBlock(nn.Module):
         self.attn = TAttention(d, cfg.num_heads, group)
         self.ls1 = TLayerScale(d, cfg.layerscale_init)
         self.norm2 = TLayerNorm(d)
-        self.mlp = TMlp(d, int(d * cfg.mlp_ratio), group)
+        ffn = TSwiGLU if ffn_kind(cfg) == "swiglufused" else TMlp
+        self.mlp = ffn(d, ffn_hidden(cfg), group)
         self.ls2 = TLayerScale(d, cfg.layerscale_init)
 
     def forward(self, x, kv_len=None):
@@ -268,6 +300,20 @@ class Mlp(nn.Module):
         return _dense(self.fc2, _gelu(_dense(self.fc1, x)))
 
 
+class SwiGLU(nn.Module):
+    """Standard-stream twin of :class:`TSwiGLU`: halves along the last dim."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        with span("ffn"):
+            x1, x2 = _dense(self.w12, x).chunk(2, dim=-1)
+            return _dense(self.w3, F.silu(x1) * x2)
+
+
 class Block(nn.Module):
     """Standard-stream twin of :class:`TBlock`: the same parameter names."""
 
@@ -279,7 +325,8 @@ class Block(nn.Module):
         self.attn = Attention(d, cfg.num_heads, group)
         self.ls1 = LayerScale(d, cfg.layerscale_init)
         self.norm2 = nn.LayerNorm(d, eps=1e-6)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+        ffn = SwiGLU if ffn_kind(cfg) == "swiglufused" else Mlp
+        self.mlp = ffn(d, ffn_hidden(cfg))
         self.ls2 = LayerScale(d, cfg.layerscale_init)
 
     def forward(self, x, kv_len=None):
@@ -326,6 +373,9 @@ class DINOv2ViT(nn.Module):
         p = _tp_size(self.group)
         if self.transposed and cfg.num_heads % p:
             raise ValueError(f"num_heads={cfg.num_heads} not divisible by mesh axis "
+                             f"'model'={p}")
+        if self.transposed and ffn_hidden(cfg) % p:
+            raise ValueError(f"FFN hidden width {ffn_hidden(cfg)} not divisible by mesh axis "
                              f"'model'={p}")
         block_cls = TBlock if self.transposed else Block
         self.blocks = nn.ModuleList(block_cls(cfg, remat_mlp=remat_policy == "mlp",

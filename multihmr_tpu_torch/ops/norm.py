@@ -27,7 +27,8 @@ import torch
 
 from multihmr_tpu_torch.ops import cuda_lib
 
-KERNEL = "layernorm_cm"
+KERNEL = "layernorm_cm"  # every K2 launch, both kernels
+KERNEL_WIDE = "layernorm_cm_wide"  # those of its wide path (D > 1024) among them
 
 
 def _wide(t):
@@ -48,15 +49,21 @@ def layernorm_cm_reference(x, scale, bias, eps: float = 1e-6,
     return (y * _wide(scale)[None, :, None] + _wide(bias)[None, :, None]).to(out_dtype)
 
 
+# K2's widest D: one warp per 32 channels up to 1,024, two groups of 32 a
+# warp past it (``csrc/layernorm_cm.cu``'s wide path)
+MAX_D = 2048
+
+
 def check_rows16(x, y):
-    """K2's rule: D a multiple of 32 in [32, 1024] (one warp per 32
-    channels, one block per 32 tokens), and every channel row of ``x`` and
-    ``y`` ``[B, D, N]`` 16-byte aligned: N times each one's element size a
-    multiple of 16 bytes and 16-byte aligned bases. Raises naming the rule;
-    nothing pads or copies here."""
+    """K2's rule: D a multiple of 32 in [32, 2048] (one block per 32
+    tokens; one warp per 32 channels, or per 64 past 1,024), and every
+    channel row of ``x`` and ``y`` ``[B, D, N]`` 16-byte aligned: N times
+    each one's element size a multiple of 16 bytes and 16-byte aligned
+    bases. Raises naming the rule; nothing pads or copies here."""
     D, N = x.shape[1:]
-    if D % 32 or not 32 <= D <= 1024:
-        raise ValueError(f"layernorm_cm: K2 takes D a multiple of 32 in [32, 1024], got {D}")
+    if D % 32 or not 32 <= D <= MAX_D:
+        raise ValueError(
+            f"layernorm_cm: K2 takes D a multiple of 32 in [32, {MAX_D}], got {D}")
     for name, t in (("x", x), ("y", y)):
         if (N * t.element_size()) % 16 or t.data_ptr() % 16:
             raise ValueError(
@@ -89,6 +96,8 @@ def _layernorm_cm_cuda(x, scale, bias, eps, out_dtype):
     )
     cuda_lib.check(err, KERNEL)
     cuda_lib.LAUNCHES[KERNEL] += 1
+    if D > 1024:
+        cuda_lib.LAUNCHES[KERNEL_WIDE] += 1
     return y
 
 

@@ -13,7 +13,11 @@ ranks), each holding its own shard of the weights:
     of q, k and v, so its ``[B, 3·D/P, N]`` output reshapes with no copy to
     the ``[B, 3, H/P, Dh, N]`` operand of K1 (the JAX rule ``P(None,
     "model")`` splits the 3·D columns into contiguous blocks and XLA
-    reshards them before the attention; the numbers are the same). Every
+    reshards them before the attention; the numbers are the same). The
+    SwiGLU FFN of a port-only backbone (``port_config.py``) pairs ``w12``
+    (column: rank ``r`` keeps the rows ``t·H + j`` of its ``H/P`` share
+    of each half ``t`` of x1 and x2, so its output's halves match) with
+    ``w3`` (row), which the JAX package has no rule for. Every
     other parameter is replicated, and so are all weights with
     ``tp_mode="ring"``, where the ViT shards the sequence instead (the JAX
     rules shard the dense weights in ring mode too);
@@ -44,13 +48,19 @@ import torch.distributed as dist
 
 # Megatron rules of the ViT blocks, by parameter name (the port's names,
 # weights stored [out, in]): "heads" keeps the rank's heads' q, k and v rows,
-# 0 a contiguous share of dim 0 (column-parallel), 1 of dim 1 (row-parallel)
+# "halves" the rank's share of each of the SwiGLU w12's two halves (x1's
+# rows and the matching x2 rows), 0 a contiguous share of dim 0
+# (column-parallel), 1 of dim 1 (row-parallel)
 _TP_RULES = [
     (re.compile(r"backbone\..*attn\.qkv\.(weight|bias)$"), "heads"),
     (re.compile(r"backbone\..*attn\.proj\.weight$"), 1),
     (re.compile(r"backbone\..*mlp\.fc1\.(weight|bias)$"), 0),
     (re.compile(r"backbone\..*mlp\.fc2\.weight$"), 1),
+    (re.compile(r"backbone\..*mlp\.w12\.(weight|bias)$"), "halves"),
+    (re.compile(r"backbone\..*mlp\.w3\.weight$"), 1),
 ]
+# the rules that cut dim 0 into equal parts (q, k, v; x1, x2) and shard each
+_PARTS = {"heads": 3, "halves": 2}
 # the parameters of the sequence-sharded blocks (tp_mode="ring"): each rank's
 # gradient holds its tokens' share only
 _SEQUENCE_SHARDED = re.compile(r"backbone\.blocks\.")
@@ -90,7 +100,8 @@ def axis_group(mesh, axis: str):
 
 
 def tp_rule(name: str):
-    """The TP rule of a parameter name: "heads", 0, 1, or None (replicated)."""
+    """The TP rule of a parameter name: "heads", "halves", 0, 1, or None
+    (replicated)."""
     for rule, how in _TP_RULES:
         if rule.search(name):
             return how
@@ -102,9 +113,9 @@ def shard_tensor(name: str, t: torch.Tensor, rank: int, size: int) -> torch.Tens
     how = tp_rule(name)
     if how is None or size == 1:
         return t
-    if how == "heads":  # [3D, ...] → rows (t, this rank's heads, d) → [3·D/P, ...]
-        qkv = t.reshape((3, t.shape[0] // 3) + t.shape[1:])
-        return qkv.chunk(size, 1)[rank].reshape((-1,) + t.shape[1:]).contiguous()
+    if how in _PARTS:  # e.g. [3D, ...] → rows (t, this rank's heads, d) → [3·D/P, ...]
+        parts = t.reshape((_PARTS[how], t.shape[0] // _PARTS[how]) + t.shape[1:])
+        return parts.chunk(size, 1)[rank].reshape((-1,) + t.shape[1:]).contiguous()
     return t.chunk(size, how)[rank].contiguous()
 
 
@@ -113,8 +124,9 @@ def unshard_tensors(name: str, shards: list) -> torch.Tensor:
     how = tp_rule(name)
     if how is None or len(shards) == 1:
         return shards[0]
-    if how == "heads":
-        parts = [s.reshape((3, s.shape[0] // 3) + s.shape[1:]) for s in shards]
+    if how in _PARTS:
+        n = _PARTS[how]
+        parts = [s.reshape((n, s.shape[0] // n) + s.shape[1:]) for s in shards]
         full = torch.cat(parts, 1)
         return full.reshape((-1,) + full.shape[2:])
     return torch.cat(shards, how)

@@ -295,30 +295,30 @@ def rotation(fn, inputs):
     return call
 
 
-def time_k2(norm, card):
-    """K2, its plain version and ``F.layer_norm`` at [1, 1024, 4104] bf16:
-    back to back on one tensor (input and output stay in the 50 MB L2) and
-    over a rotation of 8 inputs (read from device memory), the host queued
-    ahead of the device. Returns (K2, plain, F.layer_norm, bound, bound_by),
-    the device-memory readings."""
+def time_k2(norm, card, D=1024, phase=7):
+    """K2, its plain version and ``F.layer_norm`` at [1, D, 4104] bf16 (D =
+    1024: ViT-L; 1536: ViT-g/14, K2's wide path): back to back on one tensor
+    (input and output stay in the 50 MB L2) and over a rotation of 8 inputs
+    (read from device memory), the host queued ahead of the device. Returns
+    (K2, plain, F.layer_norm, bound, bound_by), the device-memory readings."""
     F = torch.nn.functional
-    N = 4104  # the pre-padded 896_L stream
-    xs = [torch.randn((1, 1024, N), device="cuda").to(torch.bfloat16) for _ in range(8)]
-    xts = [x.transpose(1, 2).contiguous() for x in xs]  # [1, 4104, 1024]
-    s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
+    N = 4104  # the pre-padded 896 px stream
+    xs = [torch.randn((1, D, N), device="cuda").to(torch.bfloat16) for _ in range(8)]
+    xts = [x.transpose(1, 2).contiguous() for x in xs]  # [1, 4104, D]
+    s, b = torch.ones(D, device="cuda"), torch.zeros(D, device="cuda")
     sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
     kern = lambda x: norm.layernorm_cm(x, s, b)  # noqa: E731
-    lib = lambda x: F.layer_norm(x, (1024,), sb, bb, 1e-6)  # noqa: E731
+    lib = lambda x: F.layer_norm(x, (D,), sb, bb, 1e-6)  # noqa: E731
     one = {name: cuda_ms(lambda: fn(x), iters=48, ahead_ms=5)
            for name, fn, x in (("K2", kern, xs[0]), ("F.layer_norm", lib, xts[0]))}
     rot = {name: cuda_ms(rotation(fn, x), iters=48, ahead_ms=5)
            for name, fn, x in (("K2", kern, xs), ("F.layer_norm", lib, xts))}
     plain = cuda_ms(lambda: norm.layernorm_cm_reference(xs[0], s, b), iters=20)
-    bound = bound_ms(8 * 1024 * N, 2 * 1024 * N * 2 + 2 * 1024 * 4)
-    log(7, f"K2 [1,1024,4104] bf16->bf16: kernel {rot['K2']:.4f} ms over 8 rotating inputs, "
-           f"{one['K2']:.4f} ms on one tensor (L2); F.layer_norm [1,4104,1024] "
-           f"{rot['F.layer_norm']:.4f} / {one['F.layer_norm']:.4f} ms; plain {plain:.4f} ms; "
-           f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    bound = bound_ms(8 * D * N, 2 * D * N * 2 + 2 * D * 4)
+    log(phase, f"K2 [1,{D},4104] bf16->bf16: kernel {rot['K2']:.4f} ms over 8 rotating "
+               f"inputs, {one['K2']:.4f} ms on one tensor (L2); F.layer_norm [1,4104,{D}] "
+               f"{rot['F.layer_norm']:.4f} / {one['F.layer_norm']:.4f} ms; plain {plain:.4f} "
+               f"ms; bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
     return (rot["K2"], plain, rot["F.layer_norm"], *bound)
 
 
@@ -471,21 +471,24 @@ def _bwd_call(attention, kernel, inputs):
 
 
 def kernel_ms(attention, norm):
-    """K5 at [1, 16, 4097, 64], K2 at [1, 1024, 4104] (one tensor, and 8
-    rotating inputs), and K3, K4a, K4b at [1, 16, 64, 4104] with kv_len 4097,
-    through the given modules' wrappers, bf16, the host queued ahead: lines
-    of text."""
+    """K5 at [1, 16, 4097, 64], K2 at [1, 1024, 4104] and, on its wide path,
+    at ViT-g/14's [1, 1536, 4104] (one tensor, and 8 rotating inputs), and
+    K3, K4a, K4b at [1, 16, 64, 4104] with kv_len 4097, through the given
+    modules' wrappers, bf16, the host queued ahead: lines of text."""
     (q, k, v), xs = _inputs()
     s, b = torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
-    turn = [0]
-
-    def rotating():
-        norm.layernorm_cm(xs[turn[0] % 8], s, b)
-        turn[0] += 1
-
     k5 = cuda_ms(lambda: attention._flash_fwd_std(q, k, v), iters=20, ahead_ms=2)
     k2 = cuda_ms(lambda: norm.layernorm_cm(xs[0], s, b), iters=48, ahead_ms=5)
-    k2_rot = cuda_ms(rotating, iters=48, ahead_ms=5)
+    k2_rot = cuda_ms(rotation(lambda x: norm.layernorm_cm(x, s, b), xs), iters=48, ahead_ms=5)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xw = [torch.randn((1, 1536, 4104), device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(8)]
+    sw, bw = torch.ones(1536, device="cuda"), torch.zeros(1536, device="cuda")
+    k2w = cuda_ms(lambda: norm.layernorm_cm(xw[0], sw, bw), iters=48, ahead_ms=5)
+    k2w_rot = cuda_ms(rotation(lambda x: norm.layernorm_cm(x, sw, bw), xw), iters=48,
+                      ahead_ms=5)
+    k2w_bound = bound_ms(8 * 1536 * 4104, 2 * 1536 * 4104 * 2 + 2 * 1536 * 4)
+    del xw
     inputs = _bwd_inputs(attention)
     bwd = {label: cuda_ms(_bwd_call(attention, kernel, inputs), iters=10, ahead_ms=2)
            for label, kernel in (("K3", attention.KERNEL_BWD), ("K4a", attention.KERNEL_BWD_DQ),
@@ -493,6 +496,8 @@ def kernel_ms(attention, norm):
     return [f"K5 [1,16,4097,64] bf16: {k5:.4f} ms",
             f"K2 [1,1024,4104] bf16: {k2_rot:.4f} ms over 8 rotating inputs, {k2:.4f} ms on one "
             f"tensor (L2)",
+            f"K2 wide [1,1536,4104] bf16: {k2w_rot:.4f} ms over 8 rotating inputs, {k2w:.4f} ms "
+            f"on one tensor (L2), bound {k2w_bound[0]:.4f} ms ({k2w_bound[1]})",
             "[1,16,64,4104] kv_len 4097 bf16: "
             + ", ".join(f"{n} {t:.4f} ms" for n, t in bwd.items())
             + f", K4a + K4b {bwd['K4a'] + bwd['K4b']:.4f} ms"]

@@ -35,7 +35,10 @@ channel stride raises; the fp32 paths
 take any stride and keep odd token counts. K2 takes only
 16-byte channel rows too: its cases run at aligned token counts (336 and
 the 672 px stream's 2,312) at D = 128, 384 and 1024; an odd count or a
-misaligned base raises.
+misaligned base raises. Its wide path (1024 < D <= 2048: two groups of 32
+channels a warp) runs at D = 1056 (the last warp's second group absent),
+1536 (ViT-g/14) and 2048, at the 896 px stream's 4,104 tokens and at 1,000,
+both with a ragged last 32-token tile.
 """
 
 import numpy as np
@@ -241,12 +244,22 @@ def test_layernorm_kernel(dev, in_dtype, out_dtype, n, d):
     y = norm.layernorm_cm(x, scale, bias, 1e-6, out_dtype)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES[norm.KERNEL] == 1 and y.dtype == out_dtype
+    assert cuda_lib.LAUNCHES[norm.KERNEL_WIDE] == (d > 1024)  # counted apart past 1,024
     ref = norm.layernorm_cm_reference(x, scale, bias, 1e-6, torch.float32)
     err = (y.float() - ref).abs()
     if out_dtype == torch.float32:
         assert err.max().item() <= 1e-5
     else:
         assert (err <= ref.abs() * 2 ** -7 + 1e-6).all()
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1000, 4104])
+@pytest.mark.parametrize("d", [1056, 1536, 2048])
+def test_layernorm_kernel_wide(dev, in_dtype, out_dtype, n, d):
+    """K2's wide path against the plain version, as the narrow one."""
+    test_layernorm_kernel(dev, in_dtype, out_dtype, n, d)
 
 
 def test_layernorm_rejects(dev):

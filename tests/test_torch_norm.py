@@ -135,10 +135,13 @@ def test_plain_on_padded_stream_matches_pallas(rng, D):
     np.testing.assert_array_equal(want[..., n:], pad)
 
 
-# (x dtype, y dtype, D, N, takes): K2 takes D a multiple of 32 in [32, 1024]
-# and channel rows of x and y that are multiples of 16 bytes
+# (x dtype, y dtype, D, N, takes): K2 takes D a multiple of 32 in [32, 2048]
+# (past 1,024 its wide path) and channel rows of x and y that are multiples
+# of 16 bytes
 ROW_RULE = [
     (torch.bfloat16, torch.bfloat16, 1024, 4104, True),
+    (torch.bfloat16, torch.bfloat16, 1536, 4104, True),
+    (torch.float32, torch.bfloat16, 2048, 24, True),
     (torch.bfloat16, torch.float32, 384, 2312, True),
     (torch.float32, torch.float32, 128, 20, True),
     (torch.bfloat16, torch.bfloat16, 1024, 4097, False),
@@ -146,7 +149,8 @@ ROW_RULE = [
     (torch.float32, torch.bfloat16, 128, 20, False),
     (torch.float32, torch.float32, 128, 18, False),
     (torch.bfloat16, torch.bfloat16, 100, 24, False),
-    (torch.bfloat16, torch.bfloat16, 2048, 24, False),
+    (torch.bfloat16, torch.bfloat16, 2080, 24, False),
+    (torch.bfloat16, torch.bfloat16, 1544, 24, False),
 ]
 
 
@@ -159,6 +163,15 @@ def test_k2_row_rule(x_dtype, y_dtype, D, N, takes):
     else:
         with pytest.raises(ValueError, match="K2"):
             tnorm.check_rows16(x, y)
+
+
+@pytest.mark.parametrize("D", [2080, 4096])
+def test_k2_wrapper_raises_past_its_widest(D):
+    """Past 2,048 channels K2's wrapper raises before anything reaches a card."""
+    x = torch.zeros((1, D, 8), dtype=torch.bfloat16)
+    s = torch.ones(D)
+    with pytest.raises(ValueError, match=r"K2 takes D a multiple of 32 in \[32, 2048\]"):
+        tnorm._layernorm_cm_cuda(x, s, s, 1e-6, torch.bfloat16)
 
 
 def test_k2_row_rule_misaligned_base():

@@ -177,6 +177,16 @@ def test_param_sharding_rules():
     for k, v in state.items():
         shards = [sharding.shard_tensor(k, v, r, P) for r in range(P)]
         assert torch.equal(sharding.unshard_tensors(k, shards), v), k
+    # the port-only SwiGLU FFN (no JAX rule): w12's rows by matching halves
+    # (rank 1 of 2 keeps rows 2-3 of x1's half and 6-7 of x2's), w3 by columns
+    w12 = torch.arange(8, dtype=torch.float32)[:, None].expand(8, D)
+    name = "backbone.blocks.0.mlp.w12.weight"
+    assert sharding.shard_tensor(name, w12, 1, P)[:, 0].tolist() == [2, 3, 6, 7]
+    assert torch.equal(sharding.unshard_tensors(
+        name, [sharding.shard_tensor(name, w12, r, P) for r in range(P)]), w12)
+    assert (sharding.tp_rule("backbone.blocks.0.mlp.w12.bias"),
+            sharding.tp_rule("backbone.blocks.0.mlp.w3.weight"),
+            sharding.tp_rule("backbone.blocks.0.mlp.w3.bias")) == ("halves", 1, None)
 
     class Ring:  # a mesh stand-in: shard_state_dict reads nothing of it in ring mode
         pass

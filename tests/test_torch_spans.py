@@ -133,11 +133,13 @@ def test_export_graph_has_no_profiler_node(tiny):
 # (100 + 100) / 2, upload (20 + 10 + 20 + 10) / 2, readback (80 + 100) / 2,
 # other (10 + 10 + 50) / 2.
 
-def _ev(name, start, end, device=False, dtt=0.0, user=False):
+def _ev(name, start, end, device=False, dtt=0.0, user=False, id=0, kernels=(), thread=1):
     return SimpleNamespace(name=name, device_type=CUDA if device else CPU,
                            time_range=SimpleNamespace(start=float(start), end=float(end)),
                            device_time_total=float(dtt), is_user_annotation=user,
-                           is_async=False)
+                           is_async=False, id=id, thread=thread,
+                           kernels=[SimpleNamespace(name=n, duration=float(d))
+                                    for n, d in kernels])
 
 
 def _synthetic(with_device=True):
@@ -189,7 +191,76 @@ def test_readers_in_benchmark():
         m = entries[name]
         assert (m["unit"], m["better"], m["source"], m["moves"], m["workloads"]) == (
             "ms", "lower", "device_trace", "images_per_s",
-            ["folder_896L_b8", "folder_672L_anny_b8"])
+            ["folder_896L_b8", "folder_672L_anny_b8", "folder_896G_b8"])
+
+
+# -- the SwiGLU FFN's spans and K2's roofline ---------------------------------
+#
+# The hand-built trace above with three ``multihmr.ffn`` spans inside each
+# ``vit`` span. In each, an operator whose kernels take 20, 30 and 40 us in
+# the first batch and 50, 60 and 70 in the second, and a child of it that
+# shares its correlation id and so lists the same kernels again; the spans'
+# own device_time_total reads twice that. Left out: the spans' device copy
+# in the first span's kernels, an operator of the same time on another
+# thread, and one inside ``vit`` but in no ``ffn`` span. So (90 + 180) / 2 =
+# 135 us a batch. K2: four
+# kernels of 100, 120, 140 and 160 us (the narrow and the wide one's names),
+# two other kernels: a mean of 130 us a call against the bound at the
+# cell's width, batch and true tokens.
+
+def _with_ffn():
+    tr = _synthetic()
+    for off, times in ((0, (20, 30, 40)), (600, (50, 60, 70))):
+        for i, t in enumerate(times):
+            s, op = off + 160 + 40 * i, 100 + off + i
+            gemm = [("gemm", t)]
+            tr.host += [_ev("multihmr.ffn", s, s + 30, dtt=2 * t,
+                            kernels=[("multihmr.ffn", 30)] if op == 100 else ()),
+                        _ev("aten::addmm", s + 5, s + 25, id=op, kernels=gemm),
+                        _ev("Command Buffer Full", s + 10, s + 20, id=op, kernels=gemm),
+                        _ev("aten::mul", s + 5, s + 25, id=op + 50, kernels=gemm, thread=2)]
+        tr.host.append(_ev("aten::addmm", off + 275, off + 290, id=off + 90,
+                           kernels=[("gemm", 1000)]))
+    return tr
+
+
+def test_ffn_reader():
+    assert harness.read_metric("ffn_ms.infer", {"trace": _with_ffn()}) == pytest.approx(
+        0.135, abs=1e-12)
+    assert harness.read_metric("ffn_ms.infer", {"trace": _synthetic()}) is None
+    assert harness.read_metric("ffn_ms.infer", {"trace": None}) is None
+
+
+@pytest.mark.parametrize("config", ["multiHMR_896_L", "multiHMR_896_G"])
+def test_k2_roofline_reader(config):
+    from portbench import roofline
+
+    k2 = ["void mhmr::(anonymous namespace)::layernorm_cm_kernel<mhmr::BF16, mhmr::BF16>",
+          "void mhmr::(anonymous namespace)::layernorm_cm_wide_kernel<mhmr::BF16, mhmr::BF16>"]
+    kernels = [_ev(k2[i % 2], 0, t, True) for i, t in enumerate((100, 120, 140, 160))]
+    kernels += [_ev("gemm", 0, 1000, True), _ev("flash", 0, 10, True)]
+    tr = Trace(kernels, window_s=1e-3)
+    cfg = harness.load_json(harness.ROOT / "configs" / f"{config}.json")
+    cell = SimpleNamespace(config=cfg, traffic={"batch": 8})
+    D = cfg["embed_dim"]
+    n = roofline.tokens(cfg)
+    bound = (2 * 8 * D * n * 2 + 2 * D * 4) / roofline.PEAK_BYTES
+    got = harness.read_metric("k2_roofline.infer", {"trace": tr, "cell": cell})
+    assert got == pytest.approx(100 * bound / 130e-6, rel=1e-12)
+    assert harness.read_metric("k2_roofline.infer", {"trace": Trace(kernels[4:], 1e-3),
+                                                     "cell": cell}) is None
+
+
+def test_new_readers_in_benchmark():
+    entries = {m["name"]: m for m in harness.load_json(
+        harness.ROOT.parent / "BENCHMARK.json")["per_layer"]}
+    assert [entries["ffn_ms.infer"][k] for k in ("unit", "better", "source", "layer", "moves",
+                                                 "workloads")] == [
+        "ms", "lower", "device_trace", "backbone", "images_per_s", ["folder_896G_b8"]]
+    assert [entries["k2_roofline.infer"][k] for k in ("unit", "better", "source", "layer",
+                                                      "moves", "workloads")] == [
+        "%", "higher", "device_trace", "kernels", "images_per_s",
+        ["folder_896L_b8", "folder_672L_anny_b8", "folder_896G_b8"]]
 
 
 # -- the share of forward-kinematics spans that replay a CUDA graph -----------
@@ -234,4 +305,4 @@ def test_fk_graph_reader_in_benchmark():
              if m["name"] == "fk_graph_pct.infer")
     assert (m["unit"], m["better"], m["source"], m["layer"], m["moves"], m["workloads"]) == (
         "%", "higher", "device_trace", "body model", "images_per_s",
-        ["folder_896L_b8", "folder_672L_anny_b8"])
+        ["folder_896L_b8", "folder_672L_anny_b8", "folder_896G_b8"])

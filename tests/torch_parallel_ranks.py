@@ -218,3 +218,23 @@ def cli_world(rank, n, cwd, argv):
     os.chdir(cwd)
     main(argv)
     return rank
+
+
+def swiglu_vit_tp(rank, world, vit_cfg, grid, path):
+    """The channels-major SwiGLU ViT (``vit_cfg``, a ``grid`` x ``grid``
+    patch grid, fp32) on a ``world``-rank model axis: its heads and FFN
+    cut from the full state dict in ``path`` by ``shard_tensor``; the
+    forward of the image batch there, as numpy."""
+    from multihmr_tpu_torch.models.vit import DINOv2ViT
+    from multihmr_tpu_torch.parallel.sharding import make_mesh, shard_tensor
+
+    saved = torch.load(path)
+    mesh = make_mesh(world, model_parallel=world, device_type="cpu")
+    with torch.device("meta"):
+        vit = DINOv2ViT(vit_cfg, grid, torch.float32, mesh=mesh)
+    # the rules are written for the whole net's names, under backbone.
+    state = {k: shard_tensor("backbone." + k, v, rank, world) for k, v in saved["state"].items()}
+    vit.load_state_dict(state, strict=True, assign=True)
+    with torch.no_grad():
+        out = vit(saved["x"])
+    return {k: _np(v) for k, v in out.items()}
